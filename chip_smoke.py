@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's encrypted read once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's encrypted RAM once on one NVIDIA GPU: reads,
+read-modify-write cycles and batched reads.
 
     python3 chip_smoke.py [--seed N] [--reads N] [--profile] [--kernels-only]
                           [--verbose-build]
@@ -7,18 +8,27 @@
 Phases (each prints one JSON line; any failure exits non-zero):
 
   device         the card (nvidia-smi name and power limit), torch and CUDA
-  build          compiles the four CUDA kernels from fhe_ram_tpu_torch/csrc
+  build          compiles the CUDA kernels from fhe_ram_tpu_torch/csrc
   kernel checks  each kernel against its plain PyTorch version on the card,
-                 at the shapes one read at PARAMS_2_18_TURBO_READOPT gives it
-                 (torch.equal: integer arithmetic, tolerance 0), with times
+                 at the shapes the paths below give it at
+                 PARAMS_2_18_TURBO_READOPT (torch.equal: integer arithmetic,
+                 tolerance 0), with times
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
                  launch counters are set to 0 before and read after
   read_vs_plain  one of those reads again through the plain versions on the
                  card, bit-equal to the kernels' read
-  kernels        one line for all kernels: launches on the read path, error,
-                 time, the plain version's time, and the card's bound
+  rmw            4 read_prepare_write + write cycles at distinct
+                 addresses: the old word comes out, the new word reads back,
+                 two other addresses are unchanged, launches per cycle
+  rmw_vs_plain   one cycle again through the plain versions on the card:
+                 the read-out and the whole new RAM bit-equal
+  read_batch     16 addresses in one read_batch call, with the spectral
+                 cache and without: every word decodes and equals the single
+                 read's ciphertext bit for bit; then 64 addresses
+  kernels        one line for all kernels: launches over the three paths,
+                 error, time, the plain version's time, and the card's bound
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA device and
 nvcc; imports fhe_ram_tpu_torch only.
@@ -42,6 +52,10 @@ import torch
 # so a bound taken from it is a floor.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+
+CYCLES = 4       # read-modify-write cycles
+BATCH = 16       # addresses of the batched read held against single reads
+BIG_BATCH = 64   # addresses of one more, larger batched read
 
 
 def emit(obj):
@@ -83,8 +97,10 @@ def ntt_ops(n):
     return 3 * (n // 2) * int(math.log2(n)) + n
 
 
-def fold_ops(rows, T, M, n, P=3):
-    return rows * (P * (T * ntt_ops(n) + M * (2 * T * n + ntt_ops(n))) + 40 * M * n)
+def fold_ops(rows, T, M, n, P=3, spectral=False):
+    """spectral: the digits come transformed, no forward transforms."""
+    fwd = 0 if spectral else T * ntt_ops(n)
+    return rows * (P * (fwd + M * (2 * T * n + ntt_ops(n))) + 40 * M * n)
 
 
 def bound(bytes_moved, ops):
@@ -100,7 +116,8 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (a first look at new kernels)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more read with torch.profiler: device time "
+                    help="trace one more read, one more write cycle and one "
+                         "more batched read with torch.profiler: device time "
                          "by kernel and the device's idle share")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print what ptxas says of each kernel (registers, spills)")
@@ -117,6 +134,7 @@ def main():
     from fhe_ram_tpu_torch.core import glwe, keys as keys_mod, rng
     from fhe_ram_tpu_torch.ram import address as address_mod
     from fhe_ram_tpu_torch.ram import ram as ram_mod
+    from fhe_ram_tpu_torch.convert import stack_addresses
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
@@ -166,16 +184,21 @@ def main():
     checks = {}
 
     def check(name, shape_note, kernel_fn, reps=7, plain_reps=3):
-        """Run kernel and plain version on the same tensors; compare; time."""
-        got = kernel_fn()
-        torch.cuda.synchronize()
+        """Run kernel and plain version on the same tensors; compare; time.
+        kernel_fn returns one tensor or a tuple of them."""
+        def outputs():
+            out = kernel_fn()
+            torch.cuda.synchronize()
+            return out if isinstance(out, tuple) else (out,)
+        got = outputs()
         with ntt_cuda.plain_versions():
-            want = kernel_fn()
-        torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype:
-            fail(f"{name} {shape_note}: shape/dtype {got.shape} {got.dtype}")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        ok = torch.equal(got, want)
+            want = outputs()
+        err, ok = 0, len(got) == len(want)
+        for g_, w_ in zip(got, want):
+            if g_.shape != w_.shape or g_.dtype != w_.dtype:
+                fail(f"{name} {shape_note}: shape/dtype {g_.shape} {g_.dtype}")
+            err = max(err, int((g_.to(torch.int64) - w_.to(torch.int64)).abs().max()))
+            ok = ok and torch.equal(g_, w_)
         ms = time_ms(kernel_fn, reps, 2, flush)
         with ntt_cuda.plain_versions():
             plain_ms = time_ms(kernel_fn, plain_reps, 1, flush)
@@ -226,6 +249,77 @@ def main():
         t_rot, g = 1 << l, (n >> l) + 1
         check("fused_pack_merge", f"A,B[{nb},{C},{L},4096] t={t_rot} g={g}",
               lambda: ntt_cuda.fused_pack_merge(ctx, A, Bc, t_rot, g, key_pm))
+
+    # -- the shapes the write cycle and the batched read add ----------------
+    Lkf = PAR.limbs_evk_trace          # untruncated keyswitch: 4 key limbs
+    T_kf, M_kf = rank * L, C * Lkf     # 3, 8
+    T_ef, M_ef = C * PAR.dnum_ct, C * PAR.limbs_ggsw   # full gadget: 6, 6
+    Lg, Lgk = PAR.limbs_ggsw, PAR.limbs_evk_ggsw       # 3, 5
+    NA = 8                             # addresses of the batched checks
+
+    # kernel 2 with spectral input (what a cached single read launches), the
+    # same with two chained digits, the full-gadget shapes of rpw / write,
+    # and the two folds of the GGSW inversion (5 key limbs folded to 3)
+    s0 = ntt_cuda.ntt_fwd_cuda(ctx, x0)            # [3, 256, 4, N]
+    check("fused_external_fold", f"x_is_ntt x[3,{W*R},{T_ep},4096]",
+          lambda: ntt_cuda.fused_external_fold(ctx, s0, keys_ep, L, C,
+                                               x_is_ntt=True))
+    sch = ntt_cuda.ntt_fwd_cuda(ctx, xch)
+    check("fused_external_fold", f"x_is_ntt x[3,{W},{C*L},4096] two chained digits",
+          lambda: ntt_cuda.fused_external_fold(ctx, sch, keys_ch, L, C,
+                                               x_is_ntt=True))
+    keys_ef = spectra((1, T_ef, M_ef, n)).reshape(P, 1, T_ef, M_ef, n)
+    for B_ in (W * R, W):
+        xf = limbs((B_, T_ef, n))
+        check("fused_external_fold", f"x[{B_},{T_ef},4096] keys[3,1,{T_ef},{M_ef},4096] (full gadget)",
+              lambda: ntt_cuda.fused_external_fold(ctx, xf, keys_ef, L, C))
+    D_ = PAR.dnum_ggsw
+    keys_ak = spectra((1, rank * D_, C * Lgk, n)).reshape(P, 1, rank * D_, C * Lgk, n)
+    xak, bak = limbs((D_, rank * D_, n)), limbs((D_, C, Lg, n), bits=17)
+    check("fused_external_fold", f"x[{D_},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (inversion keyswitch)",
+          lambda: ntt_cuda.fused_external_fold(ctx, xak, keys_ak, Lg, C,
+                                               base=bak, sign=-1))
+    keys_ts = spectra((1, C * D_, C * Lgk, n)).reshape(P, 1, C * D_, C * Lgk, n)
+    xts = limbs((D_, C * D_, n))
+    check("fused_external_fold", f"x[{D_},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (tensor key)",
+          lambda: ntt_cuda.fused_external_fold(ctx, xts, keys_ts, Lg, C))
+
+    # kernel 5: level 0 of a batched read (shared spectra, per-address keys)
+    # and level 1 (per-address rows), with base and sign once
+    keys_b = spectra((NA, 1, T_ep, M_ep, n)).permute(1, 0, 2, 3, 4, 5).contiguous()
+    check("fused_external_fold_batched",
+          f"x_is_ntt x[3,{W*R},{T_ep},4096] keys[{NA},3,1,{T_ep},{M_ep},4096] (level 0)",
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, s0, keys_b, L, C,
+                                                       x_is_ntt=True),
+          plain_reps=2)
+    xb1 = limbs((NA, W, T_ep, n))
+    check("fused_external_fold_batched",
+          f"x[{NA},{W},{T_ep},4096] keys[{NA},3,1,{T_ep},{M_ep},4096] (level 1)",
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, xb1, keys_b, L, C))
+    bb1 = limbs((NA, W, C, L, n), bits=17)
+    check("fused_external_fold_batched",
+          f"x[{NA},{W},{T_ep},4096] with base, sign=-1",
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, xb1, keys_b, L, C,
+                                                       base=bb1, sign=-1))
+
+    # kernels 3 and 4 with the untruncated keyswitch key (rpw / write)
+    keys_trf = spectra((S, T_kf, M_kf, n)).permute(1, 0, 2, 3, 4).contiguous()
+    check("fused_trace", f"ct[{W},{C},{L},4096] keys[{S},3,{T_kf},{M_kf},4096] (untruncated)",
+          lambda: ntt_cuda.fused_trace(ctx, ct4, keys_trf, gals), plain_reps=2)
+    key_kf = spectra((T_kf, M_kf, n))
+    for nb, l in ((W * R // 2, 5), (W, 0)):
+        A, Bc = limbs((nb, C, L, n), bits=17), limbs((nb, C, L, n), bits=17)
+        t_rot, g = 1 << l, (n >> l) + 1
+        check("fused_pack_merge", f"A,B[{nb},{C},{L},4096] t={t_rot} g={g} key[3,{T_kf},{M_kf},4096] (untruncated)",
+              lambda: ntt_cuda.fused_pack_merge(ctx, A, Bc, t_rot, g, key_kf))
+
+    # kernel 6: last (nb = 128) and first (nb = 4) level of the write's
+    # slot extraction
+    for nb, l in ((W * R // 2, 5), (W, 0)):
+        cts = limbs((nb, C, L, n))
+        t_rot, g = 1 << l, gals[l]
+        check("fused_split", f"ct[{nb},{C},{L},4096] t={t_rot} g={g} key[3,{T_kf},{M_kf},4096]",
+              lambda: ntt_cuda.fused_split(ctx, cts, t_rot, g, key_kf))
     emit({"phase": "kernel_checks", "ok": True, "tolerance": 0, "checks": checks})
     if args.kernels_only:
         return
@@ -244,40 +338,69 @@ def main():
     torch.cuda.synchronize()
     setup_s = time.time() - t0
 
-    picks = np.random.default_rng(args.seed + 1).choice(
-        np.arange(1, PAR.max_addr - 1), size=max(args.reads, 8) - 2, replace=False)
-    addrs = [0, PAR.max_addr - 1] + [int(a) for a in picks]
-    read_ms, worst_noise, per_read, outs = [], -1e9, None, {}
-    for idx in addrs:
-        ap_ = address_mod.prepare(ctx, address_mod.encrypt(PAR, ctx, s_ntt, idx, src))
-        before = dict(ntt_cuda.LAUNCHES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = server.read(state, ap_)
-        torch.cuda.synchronize()
-        read_ms.append((time.perf_counter() - t0) * 1e3)
-        delta = {k: ntt_cuda.LAUNCHES[k] - before[k] for k in before}
-        if per_read is None:
-            per_read = delta
-        want_delta = {"ntt_fwd": 0, "ntt_inv": 0, "fused_external_fold": 2,
-                      "fused_trace": 1, "fused_pack_merge": 6}
-        if delta != want_delta:
-            fail(f"read at {idx}: launches {delta}, expected {want_delta}")
+    def prepared(idx):
+        return address_mod.prepare(ctx, address_mod.encrypt(PAR, ctx, s_ntt, idx, src))
+
+    def decode(out, idx, what, plain=data):
+        """Every byte of the word read at idx equals `plain`'s, under the
+        noise bound; returns the worst log2 noise."""
         if tuple(out.shape) != (W, C, L, n) or out.dtype != torch.int32:
-            fail(f"read at {idx}: output {tuple(out.shape)} {out.dtype}")
+            fail(f"{what} at {idx}: output {tuple(out.shape)} {out.dtype}")
+        worst = -1e9
         ph = glwe.phase(PAR, ctx, s_ntt, out)
         for i in range(W):
-            want = glwe.cast_u8_signed(int(data[idx * W + i]), PAR.k_pt)
+            want = glwe.cast_u8_signed(int(plain[idx * W + i]), PAR.k_pt)
             val, noise = glwe.decode_coeff0(PAR, ph[i], want)
             if int(val) != want:
-                fail(f"read at {idx}, byte {i}: decoded {int(val)}, stored {want}")
+                fail(f"{what} at {idx}, byte {i}: decoded {int(val)}, stored {want}")
             if not noise < -(PAR.k_pt + 1):
-                fail(f"read at {idx}, byte {i}: noise 2^{noise:.2f} over the bound")
-            worst_noise = max(worst_noise, float(noise))
+                fail(f"{what} at {idx}, byte {i}: noise 2^{noise:.2f} over the bound")
+            worst = max(worst, float(noise))
+        return worst
+
+    def timed(fn):
+        """(result, ms by the host clock around fn + synchronize)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def launches_of(fn):
+        """(result, ms, launches by kernel) of one call."""
+        before = dict(ntt_cuda.LAUNCHES)
+        out, ms = timed(fn)
+        return out, ms, {k: ntt_cuda.LAUNCHES[k] - before[k] for k in before}
+
+    def expect_launches(what, got, **want):
+        want = {k: want.get(k, 0) for k in ntt_cuda.LAUNCHES}
+        if got != want:
+            fail(f"{what}: launches {got}, expected {want}")
+
+    # distinct addresses for all phases: reads, cycles (each with two
+    # neighbours that must stay unchanged), batched reads
+    n_reads = max(args.reads, 8) - 2
+    picks = [int(a) for a in np.random.default_rng(args.seed + 1).choice(
+        np.arange(1, PAR.max_addr - 1),
+        size=n_reads + 3 * CYCLES + BATCH + BIG_BATCH,
+        replace=False)]
+    addrs = [0, PAR.max_addr - 1] + picks[:n_reads]
+    rest = picks[n_reads:]
+    read_ms, worst_noise, per_read, outs = [], -1e9, None, {}
+    for idx in addrs:
+        ap_ = prepared(idx)
+        out, ms, delta = launches_of(lambda: server.read(state, ap_))
+        read_ms.append(ms)
+        if per_read is None:
+            per_read = delta
+        expect_launches(f"read at {idx}", delta, fused_external_fold=2,
+                        fused_trace=1, fused_pack_merge=6)
+        worst_noise = max(worst_noise, decode(out, idx, "read"))
         outs[idx] = (ap_, out)
     path_launches = dict(ntt_cuda.LAUNCHES)
-    for k, v in path_launches.items():
-        if v == 0:
+    for k in ("ntt_fwd", "ntt_inv", "fused_external_fold", "fused_trace",
+              "fused_pack_merge"):
+        if path_launches[k] == 0:
             fail(f"kernel {k} was not launched on the read path")
     emit({"phase": "read", "ok": True, "preset": "PARAMS_2_18_TURBO_READOPT",
           "max_addr": PAR.max_addr, "word_size": W, "n": n, "seed": args.seed,
@@ -300,31 +423,184 @@ def main():
     emit({"phase": "read_vs_plain", "ok": True, "address": idx,
           "plain_read_ms": plain_read_ms})
 
-    # ---- optional: where one read's time goes -------------------------------
+    # ---- read-modify-write cycles ------------------------------------------
+    ntt_cuda.reset_launches()
+    rpw_ms, write_ms, cycle_launches, worst_rmw = [], [], None, -1e9
+    cycle_addrs, last_cycle = [], None
+    for k in range(CYCLES):
+        idx = rest[3 * k]
+        addr = address_mod.encrypt(PAR, ctx, s_ntt, idx, src)
+        ap_ = address_mod.prepare(ctx, addr)
+        new_word = np.random.default_rng(args.seed + 2 + k).integers(
+            0, 256, size=W).astype(np.uint8)
+        w_ct = ram_mod.encrypt_write_word(PAR, ctx, s_ntt, new_word, src)
+        (out, pending), t_rpw, l_rpw = launches_of(
+            lambda: server.read_prepare_write(state, ap_))
+        new_state, t_wr, l_wr = launches_of(
+            lambda: server.write(pending, w_ct, addr))
+        expect_launches(f"read_prepare_write at {idx}", l_rpw,
+                        fused_external_fold=2, fused_pack_merge=6, fused_trace=1)
+        expect_launches(f"write at {idx}", l_wr, fused_trace=1,
+                        fused_external_fold=6, ntt_fwd=2, fused_split=6)
+        if cycle_launches is None:
+            cycle_launches = {"read_prepare_write": l_rpw, "write": l_wr}
+        rpw_ms.append(t_rpw)
+        write_ms.append(t_wr)
+        worst_rmw = max(worst_rmw, decode(out, idx, "read_prepare_write"))
+        last_cycle = (state, ap_, addr, w_ct, out, new_state)
+        state = new_state
+        data[idx * W: (idx + 1) * W] = new_word
+        cycle_addrs.append(idx)
+    rmw_launches = dict(ntt_cuda.LAUNCHES)
+    for k in ("fused_split", "fused_external_fold", "fused_trace",
+              "fused_pack_merge", "ntt_fwd"):
+        if rmw_launches[k] == 0:
+            fail(f"kernel {k} was not launched on the write cycle's path")
+    # read back (outside the counted window): every written word, after all
+    # the writes, and the two neighbours of each cycle
+    for k, idx in enumerate(cycle_addrs):
+        worst_rmw = max(worst_rmw, decode(server.read(state, prepared(idx)), idx,
+                                          "read-back"))
+        for other in rest[3 * k + 1: 3 * k + 3]:
+            worst_rmw = max(worst_rmw, decode(server.read(state, prepared(other)),
+                                              other, "read of an unwritten address"))
+    emit({"phase": "rmw", "ok": True, "cycles": CYCLES,
+          "addresses": cycle_addrs,
+          "rpw_ms": statistics.median(rpw_ms),
+          "write_ms": statistics.median(write_ms),
+          "rpw_plus_write_ms": statistics.median(
+              [a + b for a, b in zip(rpw_ms, write_ms)]),
+          "rpw_ms_all": rpw_ms, "write_ms_all": write_ms,
+          "worst_noise_log2": worst_rmw, "noise_bound_log2": -(PAR.k_pt + 1),
+          "launches_per_cycle": cycle_launches})
+
+    # ---- the last cycle again through the plain versions, on the card ------
+    st0, ap_, addr, w_ct, out, st1 = last_cycle
+    with ntt_cuda.plain_versions():
+        (p_out, p_pending), p_rpw_ms = timed(
+            lambda: server.read_prepare_write(st0, ap_))
+        p_state, p_write_ms = timed(lambda: server.write(p_pending, w_ct, addr))
+    if not torch.equal(p_out, out):
+        fail("read_prepare_write: kernels and plain versions disagree")
+    if not torch.equal(p_state.data, st1.data):
+        fail("write: kernels and plain versions disagree on the new RAM")
+    emit({"phase": "rmw_vs_plain", "ok": True, "address": cycle_addrs[-1],
+          "compared": "read-out and all of the new RAM "
+                      f"int32{list(st1.data.shape)}",
+          "plain_rpw_ms": p_rpw_ms, "plain_write_ms": p_write_ms})
+
+    # ---- batched reads -------------------------------------------------------
+    rest = rest[3 * CYCLES:]
+    batch_idx = rest[:BATCH]
+    batch_aps = [prepared(i) for i in batch_idx]
+    coords_b = stack_addresses(batch_aps)
+    ntt_cuda.reset_launches()
+    got_b, batch_ms, l_b = launches_of(lambda: server.read_batch(state, coords_b))
+    cache, cache_ms, l_c = launches_of(lambda: server.spectral_cache(state))
+    got_c, cached_ms, l_bc = launches_of(
+        lambda: server.read_batch(state, coords_b, cache=cache))
+    batch_launches = dict(ntt_cuda.LAUNCHES)
+    expect_launches("read_batch", l_b, fused_external_fold_batched=2, ntt_fwd=1,
+                    fused_pack_merge=6, fused_trace=1)
+    expect_launches("spectral_cache", l_c, ntt_fwd=1)
+    expect_launches("read_batch with the cache", l_bc,
+                    fused_external_fold_batched=2, fused_pack_merge=6,
+                    fused_trace=1)
+    # steady times: three more calls of each, the median
+    batch_all = [batch_ms] + [timed(lambda: server.read_batch(state, coords_b))[1]
+                              for _ in range(3)]
+    cached_all = [cached_ms] + [
+        timed(lambda: server.read_batch(state, coords_b, cache=cache))[1]
+        for _ in range(3)]
+    worst_b = -1e9
+    for k, idx in enumerate(batch_idx):
+        single = server.read(state, batch_aps[k])
+        if not (torch.equal(got_b[k], single) and torch.equal(got_c[k], single)):
+            fail(f"read_batch at {idx}: differs from the single read")
+        worst_b = max(worst_b, decode(got_b[k], idx, "read_batch"))
+    one_cached = server.read(state, batch_aps[0], cache=cache)
+    if not torch.equal(one_cached, got_b[0]):
+        fail("read(cache=) differs from the single read")
+    rec = {"phase": "read_batch", "ok": True, "batch": BATCH,
+           "addresses": batch_idx,
+           "equal_to_single_reads": True,
+           "batch_ms": statistics.median(batch_all), "batch_ms_all": batch_all,
+           "reads_per_s": BATCH / statistics.median(batch_all) * 1e3,
+           "cached_batch_ms": statistics.median(cached_all),
+           "cached_batch_ms_all": cached_all,
+           "cached_reads_per_s": BATCH / statistics.median(cached_all) * 1e3,
+           "spectral_cache_ms": cache_ms,
+           "spectral_cache_bytes": cache.numel() * 4,
+           "worst_noise_log2": worst_b,
+           "launches": {"read_batch": l_b, "spectral_cache": l_c,
+                        "read_batch_cached": l_bc}}
+    # one larger batch, with the cache, in one slice
+    big_idx = rest[BATCH: BATCH + BIG_BATCH]
+    big_coords = stack_addresses([prepared(i) for i in big_idx])
+    torch.cuda.reset_peak_memory_stats()
+    big_all = []
+    for _ in range(3):
+        got_big, ms = timed(lambda: server.read_batch(
+            state, big_coords, cache=cache, batch_slice=BIG_BATCH))
+        big_all.append(ms)
+    for k, idx in enumerate(big_idx):
+        worst_b = max(worst_b, decode(got_big[k], idx, "big read_batch"))
+    rec.update(big_batch=BIG_BATCH, big_batch_cached_ms_all=big_all,
+               big_batch_cached_ms=statistics.median(big_all),
+               big_batch_cached_reads_per_s=
+                   BIG_BATCH / statistics.median(big_all) * 1e3,
+               big_batch_peak_device_bytes=torch.cuda.max_memory_allocated(),
+               worst_noise_log2=worst_b)
+    del got_big, big_coords
+    emit(rec)
+
+    # ---- optional: where the time of one call of each path goes -------------
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            server.read(state, ap_)
-            torch.cuda.synchronize()
-            span_ms = (time.perf_counter() - t0) * 1e3
-        rows = [(e.key, e.device_time_total / 1e3, e.count)
-                for e in prof.key_averages() if e.device_time_total > 0
-                and e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(r[1] for r in rows)
-        rows.sort(key=lambda r: -r[1])
-        # the profiler slows the host, so the idle share is taken against
-        # the unprofiled median read time, not against the traced span
-        emit({"phase": "profile", "read_span_ms_under_profiler": span_ms,
-              "device_busy_ms": busy_ms if rows else None,
-              "device_idle_share_of_read_ms_median":
-                  1 - busy_ms / statistics.median(read_ms) if rows else None,
-              "by_kernel": [{"name": k[:60], "ms": ms, "count": c}
-                            for k, ms, c in rows[:12]]})
+        def traced(what, fn, unprofiled_ms):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, span_ms = timed(fn)
+            rows = [(e.key, e.device_time_total / 1e3, e.count)
+                    for e in prof.key_averages() if e.device_time_total > 0
+                    and e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_ms = sum(r[1] for r in rows)
+            rows.sort(key=lambda r: -r[1])
+            # the profiler slows the host, so the idle share is taken against
+            # the unprofiled median time, not against the traced span
+            emit({"phase": "profile", "of": what,
+                  "span_ms_under_profiler": span_ms,
+                  "unprofiled_ms_median": unprofiled_ms,
+                  "device_busy_ms": busy_ms if rows else None,
+                  "device_idle_share_of_unprofiled_median":
+                      1 - busy_ms / unprofiled_ms if rows else None,
+                  "by_kernel": [{"name": k[:60], "ms": ms, "count": c}
+                                for k, ms, c in rows[:14]]})
+
+        ap_ = batch_aps[0]
+        traced("read", lambda: server.read(state, ap_), statistics.median(read_ms))
+        st0, cap_, addr, w_ct, _, _ = last_cycle
+        pend = []
+        traced("read_prepare_write",
+               lambda: pend.append(server.read_prepare_write(st0, cap_)[1]),
+               statistics.median(rpw_ms))
+        traced("write", lambda: server.write(pend[0], w_ct, addr),
+               statistics.median(write_ms))
+        traced(f"read_batch of {BATCH}",
+               lambda: server.read_batch(state, coords_b),
+               statistics.median(batch_all))
 
     # ---- the kernels' line --------------------------------------------------
     poly_b = 4 * n  # bytes of one int32 polynomial
+
+    # launches over the three paths, each counted from 0 just before it was
+    # driven to just after (comparisons and read-backs are outside)
+    total_launches = {k: path_launches[k] + rmw_launches[k] + batch_launches[k]
+                      for k in path_launches}
+    for k, v in total_launches.items():
+        if v == 0:
+            fail(f"kernel {k} was launched on none of the paths")
 
     def entry(name, source, replaces, shape_idx, bytes_moved, ops):
         rec = checks[name][shape_idx]
@@ -332,7 +608,10 @@ def main():
         return {"name": name, "route": "cuda",
                 "source": f"fhe_ram_tpu_torch/csrc/{source}",
                 "replaces": f"fhe_ram_tpu/ops/ntt_pallas.py:{replaces}",
-                "shape": rec["shape"], "launches": path_launches[name],
+                "shape": rec["shape"], "launches": total_launches[name],
+                "launches_by_path": {"read": path_launches[name],
+                                     "rmw": rmw_launches[name],
+                                     "read_batch": batch_launches[name]},
                 "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
                 "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -353,6 +632,16 @@ def main():
         entry("fused_pack_merge", "pack_merge.cu", 1582, 0,
               poly_b * (3 * nb0 * C * L + P * T_ks * M_ks),
               fold_ops(nb0, T_ks, M_ks, n)),
+        # level 0 of a batched read of NA addresses: the shared spectra and
+        # NA keys in, NA x (W*R) rows out; no forward transforms
+        entry("fused_external_fold_batched", "fold.cu", 1263, 0,
+              poly_b * (P * B0 * T_ep + NA * P * T_ep * M_ep + NA * B0 * C * L),
+              fold_ops(NA * B0, T_ep, M_ep, n, spectral=True)),
+        # the last split level: nb0 rows in, two children out; the second
+        # child is ~4 operations a coefficient on top of one trace step
+        entry("fused_split", "split.cu", 1699, 0,
+              poly_b * (3 * nb0 * C * L + P * T_kf * M_kf),
+              fold_ops(nb0, T_kf, M_kf, n) + 4 * nb0 * C * L * n),
     ]
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 2)})

@@ -2,12 +2,13 @@
 
 `from_reference` takes what that client produced, as numpy arrays (or
 anything `np.asarray` accepts) -- the secret, the coefficient-domain
-evaluation keys, the encrypted RAM, an address's coordinates -- and
-returns this package's objects on the asked device.  This package then
+evaluation keys, the encrypted RAM, an address's coordinates, an
+encrypted write word -- and returns this package's objects on the asked device.  This package then
 prepares keys and addresses with its own `prepare`: spectral forms are
 never carried across, because each package defines its own spectrum
 order.  With it, both packages compute the same read on the same
-ciphertexts.
+ciphertexts.  `stack_addresses` stacks addresses into the batch layout
+of the batched read.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ class ReferenceState:
     keys: EvaluationKeys | None
     data: torch.Tensor | None        # int32[W, R, C, L, N]
     address: Address | None
+    word: torch.Tensor | None = None  # int32[W, C, L, N]
 
 
 def _tensor(x, device):
@@ -41,12 +43,13 @@ def _field(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
-def from_reference(sk=None, keys=None, ram=None, address=None,
+def from_reference(sk=None, keys=None, ram=None, address=None, word=None,
                    device="cuda") -> ReferenceState:
     """sk: int32[rank, N]; keys: an object or dict with `atk_glwe`
     {g: [D, rank, C2, L, N]}, `atk_ggsw` {g: ...} and `tsk`; ram:
     int32[W, R, C, L, N]; address: an object with `coordinates` or the
-    tuple of coordinate arrays itself."""
+    tuple of coordinate arrays itself; word: an encrypted write word
+    int32[W, C, L, N]."""
     device = require_device(device)
     out_keys = None
     if keys is not None:
@@ -64,4 +67,16 @@ def from_reference(sk=None, keys=None, ram=None, address=None,
         sk=None if sk is None else _tensor(sk, device),
         keys=out_keys,
         data=None if ram is None else _tensor(ram, device),
-        address=out_addr)
+        address=out_addr,
+        word=None if word is None else _tensor(word, device))
+
+
+def stack_addresses(addrs) -> tuple:
+    """A batch of addresses for FheRam.read_batch: coordinate i of every
+    address (Address or AddressPrepared objects, all of one kind) stacked
+    on a new leading axis.  Returns a tuple over coordinates."""
+    addrs = list(addrs)
+    if not addrs:
+        raise ValueError("no address to stack")
+    return tuple(torch.stack([a.coordinates[i] for a in addrs], dim=0)
+                 for i in range(len(addrs[0].coordinates)))

@@ -12,7 +12,9 @@ Prepared (NTT-domain) form: int32[P, D, C, C2, Lg, N].
 External product: the GLWE's (normalized) limbs are the gadget digits;
 forward NTT, multiply-accumulate against the prepared GGSW rows, inverse
 NTT, CRT-fold back into limbs -- one launch of ops.ntt_cuda
-.fused_external_fold on the GPU, its plain version on the CPU.
+.fused_external_fold on the GPU, its plain version on the CPU.  The
+batched and keyed forms (one GGSW per item, or per group of rows) are one
+launch of ops.ntt_cuda.fused_external_fold_batched.
 """
 
 from __future__ import annotations
@@ -68,3 +70,61 @@ def external_product(params: Params, ctx: NTTContext, ct, ggsw_ntt,
     keys = ggsw_ntt.permute(0, 2, 1, 3, 4, 5).reshape(P, 1, C * D, C2 * Lg, n)
     out = ntt_cuda.fused_external_fold(ctx, x, keys, Lout, C2)
     return out.reshape(lead_shape + (C2, Lout, n))
+
+
+def external_product_batched(params: Params, ctx: NTTContext, ct, ggsw_ntt,
+                             out_limbs: int | None = None, base=None,
+                             sign: int = 1):
+    """Batched GLWE x GGSW where each batch element has its own GGSW.
+
+    ct: int32[B, C, L, N]; ggsw_ntt: int32[P, B, D, C, C2, Lg, N], D == L.
+    ct's limbs are consumed as the gadget digits directly and may be
+    unnormalized (any int32 is reduced on load), so CMux callers pass
+    high - low without a normalize pass.
+    base: optional int32[B, C2, Lout, N]:
+      out = normalize(base + sign * (ct x ggsw))."""
+    P, B, D, C, C2, Lg, n = ggsw_ntt.shape
+    L = ct.shape[-2]
+    assert tuple(ct.shape) == (B, C, L, n) and D == L, (ct.shape, ggsw_ntt.shape)
+    Lout = out_limbs if out_limbs is not None else L
+    x = ct.reshape(B, 1, C * D, n)
+    # [P, B, D, C, C2, Lg, N] -> [B, P, 1, C*D, C2*Lg, N]
+    keys = ggsw_ntt.permute(1, 0, 3, 2, 4, 5, 6).reshape(
+        B, P, 1, C * D, C2 * Lg, n)
+    bb = None if base is None else base.reshape(B, 1, C2, Lout, n)
+    out = ntt_cuda.fused_external_fold_batched(ctx, x, keys, Lout, C2,
+                                               base=bb, sign=sign)
+    return out.reshape(B, C2, Lout, n)
+
+
+def external_product_keyed(params: Params, ctx: NTTContext, ct, ggsw_ntt,
+                           out_limbs: int | None = None, base=None,
+                           sign: int = 1, trunc: tuple = (None, None)):
+    """GLWE x GGSW with K distinct GGSWs, each applied to B rows:
+    ct: int32[K, B, C, L, N]; ggsw_ntt: int32[P, K, D, C, C2, Lg, N];
+    base: optional int32[K, B, C2, Lout, N].  Each key is read once for
+    its group of rows.
+
+    trunc = (in_digits, key_limbs): optional gadget truncation:
+    decompose only the top in_digits ct limbs against GGSW rows sliced to
+    key_limbs.  A GGSW with fewer digit rows than ct has limbs truncates
+    the same way.  The output keeps the pre-truncation limb count unless
+    out_limbs says otherwise."""
+    in_digits, key_limbs = trunc
+    L_full = ct.shape[-2]
+    if in_digits is not None:
+        ggsw_ntt = ggsw_ntt[:, :, :in_digits]
+        ct = ct[..., :in_digits, :]
+    if key_limbs is not None:
+        ggsw_ntt = ggsw_ntt[..., :key_limbs, :]
+    P, K, D, C, C2, Lg, n = ggsw_ntt.shape
+    if D < ct.shape[-2]:
+        ct = ct[..., :D, :]
+    K2, B, C3, L, n2 = ct.shape
+    assert K2 == K and C3 == C and D == L and n2 == n, (ct.shape, ggsw_ntt.shape)
+    Lout = out_limbs if out_limbs is not None else L_full
+    x = ct.reshape(K, B, C * D, n)
+    keys = ggsw_ntt.permute(1, 0, 3, 2, 4, 5, 6).reshape(
+        K, P, 1, C * D, C2 * Lg, n)
+    return ntt_cuda.fused_external_fold_batched(ctx, x, keys, Lout, C2,
+                                                base=base, sign=sign)

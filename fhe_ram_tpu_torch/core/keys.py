@@ -9,8 +9,8 @@ Key set:
   * tsk: the GGLWE->GGSW tensor key -- one GGSW(-s_c) per secret
     component c, stacked [rank, D, C, C2, Lg, N].
 
-`keygen` makes the whole set, the write path's keys included; the read
-consumes atk_glwe only.
+`keygen` makes the whole set; the read consumes atk_glwe only, the write
+also atk_ggsw[-1] and tsk (ggsw_automorphism_inv).
 """
 
 from __future__ import annotations
@@ -87,3 +87,33 @@ def prepare(params: Params, keys: EvaluationKeys) -> EvaluationKeysPrepared:
         atk_ggsw={g: keyswitch.key_prepare(ctx, k) for g, k in keys.atk_ggsw.items()},
         tsk=ggsw.prepare(ctx, keys.tsk),
     )
+
+
+def ggsw_automorphism(params: Params, ctx, ggsw_ct, g: int,
+                      keys: EvaluationKeysPrepared):
+    """Map GGSW(mu) (coefficient domain, [D, C, C2, Lg, N]) to
+    GGSW(sigma_g(mu)) -- for monomials with g = -1:
+    GGSW(X^e) -> GGSW(X^-e).
+
+    Requires the galois element's GGSW-level key (keygen ggsw_gal_els).
+    Generic in rank: the b-rows are keyswitched under sigma_g, then every
+    a-row c is rebuilt as b-row x tsk[c]."""
+    D, C, C2, Lg, n = ggsw_ct.shape
+    rank = params.rank
+    assert C == rank + 1 and C2 == rank + 1
+    assert g in keys.atk_ggsw, f"no GGSW automorphism key for g={g}"
+    # b-rows: (d, c=rank) -- GLWEs encrypting mu * g_d.  Batch over d.
+    rowb = keyswitch.automorphism_ks(params, ctx, ggsw_ct[:, rank], g,
+                                     keys.atk_ggsw[g], out_limbs=Lg)
+    # a-rows: encryptions of -s_c * sigma(mu) * g_d via the tensor key.
+    rows = [ggsw.external_product(params, ctx, rowb, keys.tsk[:, c],
+                                  out_limbs=Lg)
+            for c in range(rank)]
+    rows.append(rowb)
+    return torch.stack(rows, dim=1)  # [D, C(=rank+1), C2, Lg, N]
+
+
+def ggsw_automorphism_inv(params: Params, ctx, ggsw_ct,
+                          keys: EvaluationKeysPrepared):
+    """GGSW(X^e) -> GGSW(X^-e): the write path's inversion."""
+    return ggsw_automorphism(params, ctx, ggsw_ct, -1, keys)

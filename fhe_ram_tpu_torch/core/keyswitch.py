@@ -154,3 +154,59 @@ def trace_steps(params: Params, ctx: NTTContext, ct, auto_keys_ntt: dict,
     out = ntt_cuda.fused_trace(ctx, ct.reshape((-1,) + ct.shape[-3:]), keys,
                                tuple(gals))
     return out.reshape(lead + out.shape[1:])
+
+
+def extract_slots(params: Params, ctx: NTTContext, ct, count: int,
+                  auto_keys_ntt: dict, bounded_support: bool = False,
+                  dilate: int = 1, residue=None):
+    """All-slot extraction: out[..., m, :, :, :] = trace(X^-m ct) for
+    m in [0, count), i.e. per slot an encryption of [slot_m(ct), 0...].
+
+    A binary split tree: sigma_{g_l} commutes with X^{-2^j} for j > l, so
+    trace(X^-m ct) = prod_l (1 + sigma_{g_l}) X^{-m_l 2^l} (ct/N); level l
+    branches on bit l of m and the remaining log_n - ceil(log2 count)
+    steps run once per leaf.  One keyswitch a parent node feeds both
+    children (ops.ntt_cuda.fused_split: one launch a level); the tail is
+    one launch of fused_trace.
+
+    bounded_support=True: the caller guarantees that ct's plaintext is
+    exactly zero outside slots [0, count) (the write path's deltas).
+    Then, when count * 2^ceil(log2 count) <= N, the tail steps are
+    plaintext-exactly unnecessary and are skipped, and the pre-scale
+    shrinks to 1/2^s.  Without the flag every leaf passes log_n
+    keyswitches after the single 1/N pre-scale.
+
+    dilate / residue select one residue class of slots for a row-sharded
+    write; that path is not in this package yet and anything but
+    dilate == 1 is refused."""
+    if dilate != 1 or residue is not None:
+        raise NotImplementedError(
+            "extract_slots: dilate/residue belong to the row-sharded write, "
+            "which this package does not have yet")
+    n = params.n
+    s = max(count - 1, 0).bit_length()  # ceil(log2(count))
+    assert (1 << s) <= n
+    tail = params.log_n - s
+    if bounded_support and count << s <= n:
+        tail = 0
+    shift = s + tail
+    x = ct
+    while shift > 0:
+        step = min(shift, params.base2k - 1)
+        x = limb_ops.shift_right(x, step)
+        shift -= step
+    nodes = limb_ops.normalize(x)[..., None, :, :, :]
+    gals = params.trace_gal_els
+    for l in range(s):
+        # level l: A = KS(sigma_g x); child0 = x + A (the 1 + sigma_g
+        # branch); child1 = X^-t x + KS(sigma_g(X^-t x)) = X^-t (x - A),
+        # since sigma_g(X^-t) = -X^-t for t = 2^l, g = N/2^l + 1
+        g = gals[l]
+        lead = nodes.shape[:-3]
+        flat = nodes.reshape((-1,) + nodes.shape[-3:])
+        c0, c1 = ntt_cuda.fused_split(ctx, flat, 1 << l, g,
+                                      kernel_key_rows(auto_keys_ntt[g]))
+        nodes = torch.cat([c0.reshape(lead + c0.shape[1:]),
+                           c1.reshape(lead + c1.shape[1:])], dim=-4)
+    out = trace_steps(params, ctx, nodes, auto_keys_ntt, gals[s: s + tail])
+    return out[..., :count, :, :, :]

@@ -1,6 +1,6 @@
-// Shared device code of the four Hopper kernels of the encrypted read:
-// modular arithmetic, the 4096-point negacyclic NTT in shared memory, and
-// the "row fold" that every fused kernel is built from.
+// Shared device code of the Hopper kernels of the encrypted RAM: modular
+// arithmetic, the 4096-point negacyclic NTT in shared memory, and the
+// "row fold" that every fused kernel is built from.
 //
 // Replaces (function, not structure): fhe_ram_tpu/ops/ntt_pallas.py
 //   _fwd_tile_mxu / _inv_tile_mxu   -> ntt_fwd_smem / ntt_inv_smem
@@ -176,6 +176,37 @@ __device__ __forceinline__ void row_sync(int cs) {
     __syncthreads();
 }
 
+// What a Glue whose digits are coefficients says of spectral input.
+struct CoefficientDigits {
+  __device__ __forceinline__ bool spectral() const { return false; }
+  __device__ __forceinline__ int spectrum(int, int, int) const { return 0; }
+};
+
+// Glue of one trace step on a row: digits sigma_g(ct)[mask, l < Td], base
+// ct + sigma_g(ct) at the b component, so that fold_row with sign -1 gives
+// normalize(ct + KS(sigma_g(ct))).  The trace chains it; the split takes
+// one step as its first child.
+struct TraceStepGlue : CoefficientDigits {
+  const int* ct;  // [C2, L, n] of this row, the step's input; read through
+                  // L2, since another block of the cluster may have written it
+  int n, L, Td, rank, ginv;
+  __device__ __forceinline__ int sigma(int c, int l, int i) const {
+    bool neg;
+    const int src = sigma_src(i, ginv, n, neg);
+    const int v = __ldcg(ct + (c * L + l) * n + src);
+    return neg ? -v : v;
+  }
+  // digit poly t = (mask component c, limb l < Td) of sigma_g(ct)
+  __device__ __forceinline__ int digit(int t, int i) const {
+    return sigma(t / Td, t % Td, i);
+  }
+  __device__ __forceinline__ int base(int c2, int l, int i) const {
+    int b = __ldcg(ct + (c2 * L + l) * n + i);
+    if (c2 == rank) b += sigma(rank, l, i);
+    return b;
+  }
+};
+
 // One ciphertext row through: forward NTT of T digit polys, product with
 // the prepared key rows summed over T, inverse NTT, exact 3-prime Garner
 // CRT, balanced base-2^9 digit split, fold into base-2^17 limbs,
@@ -184,7 +215,12 @@ __device__ __forceinline__ void row_sync(int cs) {
 // Glue supplies  int digit(int t, int i)          -- digit poly t at index i
 //                int base(int c2, int l, int i)   -- what is added before
 //                                                    the carry normalize
-// so the fold, trace and pack-merge kernels differ only in their Glue.
+//                bool spectral()                  -- the digits come as
+//                int spectrum(int pi, int t, int i)  spectra of prime pi
+//                                                    (any representative)
+// so the fold, trace, pack-merge and split kernels differ only in their
+// Glue.  With spectral() the forward transform is skipped: spectrum() is
+// reduced to its canonical residue on load.
 //
 // A row is the work of sh.cs blocks.  cs = 1: one block loops over the
 // three primes.  cs = 3 * k: a thread block cluster; block `rank` takes
@@ -231,12 +267,18 @@ __device__ __forceinline__ void fold_row(const Glue& glue,
     const uint32_t* psi = tb.psi + pi * n;
     const uint32_t* inv_psi = tb.inv_psi + pi * n;
 
-    for (int idx = threadIdx.x; idx < T * n; idx += blockDim.x) {
-      const int t = idx >> log_n, i = idx & (n - 1);
-      const uint32_t r = lift(glue.digit(t, i), p, mu64);
-      spec[idx] = mulmod(r, __ldg(psi + i), p, mu40);
+    if (glue.spectral()) {
+      for (int idx = threadIdx.x; idx < T * n; idx += blockDim.x)
+        spec[idx] = lift(glue.spectrum(pi, idx >> log_n, idx & (n - 1)), p, mu64);
+      __syncthreads();
+    } else {
+      for (int idx = threadIdx.x; idx < T * n; idx += blockDim.x) {
+        const int t = idx >> log_n, i = idx & (n - 1);
+        const uint32_t r = lift(glue.digit(t, i), p, mu64);
+        spec[idx] = mulmod(r, __ldg(psi + i), p, mu40);
+      }
+      ntt_fwd_smem(spec, T, log_n, tb.fwd_tw + pi * n, p, mu40);
     }
-    ntt_fwd_smem(spec, T, log_n, tb.fwd_tw + pi * n, p, mu40);
 
     // mc output polys at a time: their products, ONE batched inverse pass
     // (twelve barriers for all of them), their stores
@@ -312,8 +354,9 @@ __device__ __forceinline__ void fold_row(const Glue& glue,
   }
 }
 
-// Launch `kernel` with one group of sh.cs blocks a row; a group of more
-// than one block is a thread block cluster.
+// Launch `kernel` with `rows` groups of sh.cs blocks (one group a row, or
+// fewer groups that each walk over several rows); a group of more than one
+// block is a thread block cluster.
 template <class... KArgs, class... Args>
 static inline int fold_launch(void (*kernel)(KArgs...), int rows,
                               const FoldShape& sh, int log_n, void* stream,

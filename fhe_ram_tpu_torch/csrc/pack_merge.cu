@@ -15,7 +15,7 @@
 // u + sigma_g(v) at the b component as the fold's last phase reads it.
 #include "fhe_core.cuh"
 
-struct MergeGlue {
+struct MergeGlue : CoefficientDigits {
   const int* A;  // [C2, L, n] of this pair
   const int* B;
   int n, L, Td, rank, ginv, t_rot;

@@ -14,31 +14,10 @@
 // cluster barriers between a step's phases), which keeps 24 SMs busy
 // instead of 4.  sigma_g is index arithmetic (sigma_src) on the loads; the
 // step's base, ct + sigma_g(b) at the b component, is formed in the fold's
-// last phase.  A step reads permuted positions of the row it replaces, so
-// steps alternate between two buffers (`out` and `tmp`), arranged so that
-// the last step writes `out`.
+// last phase (TraceStepGlue in fhe_core.cuh).  A step reads permuted
+// positions of the row it replaces, so steps alternate between two buffers
+// (`out` and `tmp`), arranged so that the last step writes `out`.
 #include "fhe_core.cuh"
-
-struct TraceGlue {
-  const int* ct;  // [C2, L, n] of this row, the step's input; read through
-                  // L2, since another block of the cluster wrote part of it
-  int n, L, Td, rank, ginv;
-  __device__ __forceinline__ int sigma(int c, int l, int i) const {
-    bool neg;
-    const int src = sigma_src(i, ginv, n, neg);
-    const int v = __ldcg(ct + (c * L + l) * n + src);
-    return neg ? -v : v;
-  }
-  // digit poly t = (mask component c, limb l < Td) of sigma_g(ct)
-  __device__ __forceinline__ int digit(int t, int i) const {
-    return sigma(t / Td, t % Td, i);
-  }
-  __device__ __forceinline__ int base(int c2, int l, int i) const {
-    int b = __ldcg(ct + (c2 * L + l) * n + i);
-    if (c2 == rank) b += sigma(rank, l, i);
-    return b;
-  }
-};
 
 struct TraceSteps {
   int count;
@@ -62,7 +41,7 @@ trace_kernel(const int* __restrict__ ct, const uint32_t* __restrict__ keys,
   const int* cur = ct + row;
   for (int s = 0; s < S; ++s) {
     int* nxt = ((S - 1 - s) & 1) ? tmp + row : out + row;
-    TraceGlue glue;
+    TraceStepGlue glue;
     glue.ct = cur;
     glue.n = n;
     glue.L = sh.Lout;

@@ -1,13 +1,15 @@
-"""The hand-written CUDA kernels of the encrypted read: their builder,
+"""The hand-written CUDA kernels of the encrypted RAM: their build,
 their wrappers, their launch counters, and beside each its plain PyTorch
 version.
 
-Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Four kernels (csrc/):
+Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Six kernels (csrc/):
 
   ntt_fwd_cuda / ntt_inv_cuda   the batched negacyclic NTT     (ntt.cu)
   fused_external_fold           external product / keyswitch   (fold.cu)
+  fused_external_fold_batched   the same with per-item keys    (fold.cu)
   fused_trace                   the whole trace chain          (trace.cu)
   fused_pack_merge              one pack-tree merge level      (pack_merge.cu)
+  fused_split                   one split-tree level           (split.cu)
 
 Build: one `nvcc -shared` per source for sm_90a, all started together,
 into `<package>/build/` at first use; plain C entry points bound with
@@ -45,7 +47,7 @@ from .ntt import NTTContext, ntt_fwd_plain, ntt_inv_plain
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
-SOURCES = ("ntt", "fold", "trace", "pack_merge")
+SOURCES = ("ntt", "fold", "trace", "pack_merge", "split")
 
 _MAX_L = 8        # FHE_MAX_L of csrc/fhe_core.cuh
 _MAX_STEPS = 16   # FHE_MAX_STEPS
@@ -55,11 +57,16 @@ _MAX_SMEM = 232448  # bytes of shared memory one block can use on sm_90
 # cluster of 6 wins up to 32 rows, of 3 up to 128, one block a row beyond).
 _ROWS_CLUSTER_6 = 32
 _ROWS_CLUSTER_3 = 128
+# Most blocks (or clusters) a fold launch starts; with more rows than this
+# each walks over several.  It bounds the residue scratch of a batched
+# launch: 1024 * 3 * M polys, 288 MB at M = 6, whatever the batch.
+_MAX_ROW_GROUPS = 1024
 
 # Kernel launches since the last reset_launches(): one count per wrapper,
 # incremented where the wrapper launches its kernel and nowhere else.
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "fused_external_fold": 0,
-            "fused_trace": 0, "fused_pack_merge": 0}
+            "fused_external_fold_batched": 0, "fused_trace": 0,
+            "fused_pack_merge": 0, "fused_split": 0}
 
 _force_plain = False
 _libs = None
@@ -153,12 +160,14 @@ def build_kernels(verbose: bool = False):
     sigs = {
         ("ntt", "fhe_ntt_fwd"): [vp, vp, ci, _Consts, _Tables, vp],
         ("ntt", "fhe_ntt_inv"): [vp, vp, ci, _Consts, _Tables, vp],
-        ("fold", "fhe_fold"): [vp, vp, vp, vp, vp, ci, ci, _FoldShape,
-                               _Consts, _Tables, vp],
+        ("fold", "fhe_fold"): [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                               _FoldShape, _Consts, _Tables, vp],
         ("trace", "fhe_trace"): [vp, vp, vp, vp, vp, ci, _TraceSteps, ci,
                                  _FoldShape, _Consts, _Tables, vp],
         ("pack_merge", "fhe_pack_merge"): [vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                            _FoldShape, _Consts, _Tables, vp],
+        ("split", "fhe_split"): [vp, vp, vp, vp, vp, ci, ci, ci, _FoldShape,
+                                 _Consts, _Tables, vp],
     }
     for (lib, fn), argtypes in sigs.items():
         f = getattr(libs[lib], fn)
@@ -332,15 +341,20 @@ def ntt_inv_cuda(ctx: NTTContext, x):
 # --------------------------------------------------------------------------
 
 def fused_external_fold_plain(ctx: NTTContext, x, keys_ntt, out_limbs: int,
-                              c2: int, base=None, sign: int = 1):
+                              c2: int, base=None, sign: int = 1,
+                              x_is_ntt: bool = False):
     """Plain version of `fused_external_fold`: the composed path (forward
-    NTT, int64 products, inverse NTT, crt_fold, normalize)."""
+    NTT unless the spectra are given, int64 products, inverse NTT,
+    crt_fold, normalize)."""
     P, digits, T, M, n = keys_ntt.shape
     Lk = M // c2
     p = ctx.consts(4, x.device)
     for d in range(digits):
-        B = x.shape[0]
-        spec = ntt_fwd_plain(ctx, x).to(I64)          # [P, B, T, N]
+        if d == 0 and x_is_ntt:
+            spec = torch.remainder(x.to(I64), p)      # canonical on load
+        else:
+            spec = ntt_fwd_plain(ctx, x).to(I64)      # [P, B, T, N]
+        B = spec.shape[1]
         acc = torch.zeros((P, B, M, n), dtype=I64, device=x.device)
         for t in range(T):
             acc = acc + spec[:, :, t, None, :] * keys_ntt[:, d, t][:, None].to(I64)
@@ -355,45 +369,129 @@ def fused_external_fold_plain(ctx: NTTContext, x, keys_ntt, out_limbs: int,
     return out
 
 
-def fused_external_fold(ctx: NTTContext, x, keys_ntt, out_limbs: int, c2: int,
-                        base=None, sign: int = 1):
-    """External product / keyswitch including the exact CRT fold and the
-    carry normalize, one launch.
-
-    x: int32[B, T, N] gadget digits (coefficient domain, any int32).
-    keys_ntt: int32[P, digits, T, M, N] prepared key rows, M = c2*Lk,
-      row-major over (c2, key limb); digits > 1 chains a CMux digit chain
-      (requires T == c2*out_limbs and no base).
-    base: optional int32[B, c2, out_limbs, N]:
-      out = normalize(base + sign * fold).
-    Returns int32[B, c2, out_limbs, N] normalized."""
-    P, digits, T, M, n = keys_ntt.shape
-    B = x.shape[0]
-    if tuple(x.shape) != (B, T, n) or n != ctx.n or P != len(ctx.primes):
-        raise ValueError(f"x {tuple(x.shape)} does not fit keys {tuple(keys_ntt.shape)}")
+def _fold_args(ctx: NTTContext, x, keys_ntt, out_limbs: int, c2: int, base,
+               x_is_ntt: bool, batched: bool):
+    """Check the arguments of the two fold wrappers against each other.
+    keys_ntt: [P, digits, T, M, N], or batched [A, P, digits, T, M, N].
+    Returns (A, B): items (1 without the batch axis) and rows an item."""
+    kshape = tuple(keys_ntt.shape)
+    A = kshape[0] if batched else 1
+    P, digits, T, M, n = kshape[-5:]
+    lead = (A,) if batched else ()
+    if x_is_ntt:
+        B = x.shape[1] if x.dim() == 4 else -1
+        want = (P, B, T, n)
+    else:
+        B = x.shape[len(lead)] if x.dim() == len(lead) + 3 else -1
+        want = lead + (B, T, n)
+    if (len(kshape) != len(lead) + 5 or tuple(x.shape) != want or n != ctx.n
+            or P != len(ctx.primes)):
+        raise ValueError(f"x {tuple(x.shape)} (x_is_ntt={x_is_ntt}) does not "
+                         f"fit keys {kshape}")
     if digits > 1 and (T != c2 * out_limbs or base is not None):
         raise ValueError("chained digits need T == c2*out_limbs and no base")
+    if base is not None and tuple(base.shape) != lead + (B, c2, out_limbs, n):
+        raise ValueError(f"base {tuple(base.shape)} != "
+                         f"{lead + (B, c2, out_limbs, n)}")
+    for name, t in (("keys_ntt", keys_ntt), ("base", base)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
     _fold_limits(T, M, c2, out_limbs, n)
-    if not _use_kernel(ctx, x):
-        return fused_external_fold_plain(ctx, x, keys_ntt, out_limbs, c2, base, sign)
+    return A, B
+
+
+def _launch_fold(wrapper: str, ctx: NTTContext, x, keys_ntt, out_limbs: int,
+                 c2: int, base, sign: int, x_is_ntt: bool, A: int, B: int):
+    """One launch of csrc/fold.cu over A * B rows for the wrapper named,
+    counted as its launch; returns int32[A * B, c2, out_limbs, N]."""
+    P, digits, T, M, n = keys_ntt.shape[-5:]
+    rows = A * B
     x = _require(x, "x")
     keys_ntt = _require(keys_ntt, "keys_ntt")
     if base is not None:
-        base = _require(base, "base", (B, c2, out_limbs, n))
-    out = torch.empty((B, c2, out_limbs, n), dtype=I32, device=x.device)
-    if B == 0:
+        base = _require(base, "base")
+    out = torch.empty((rows, c2, out_limbs, n), dtype=I32, device=x.device)
+    if rows == 0:
         return out
-    scratch = torch.empty((B, P, M, n), dtype=I32, device=x.device)
-    sh = _fold_shape(B, T, M, c2, out_limbs, sign, n)
+    groups = min(rows, _MAX_ROW_GROUPS)
+    scratch = torch.empty((groups, P, M, n), dtype=I32, device=x.device)
+    sh = _fold_shape(rows, T, M, c2, out_limbs, sign, n)
     with torch.cuda.device(x.device):
         err = _lib("fold").fhe_fold(
             x.data_ptr(), keys_ntt.data_ptr(),
             None if base is None else base.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), B, digits, sh, _consts(ctx),
-            _tables(ctx, x.device), _stream())
-    _check(err, "fused_external_fold")
-    LAUNCHES["fused_external_fold"] += 1
+            scratch.data_ptr(), rows, B, groups, int(x_is_ntt), digits, sh,
+            _consts(ctx), _tables(ctx, x.device), _stream())
+    _check(err, wrapper)
+    LAUNCHES[wrapper] += 1
     return out
+
+
+def fused_external_fold(ctx: NTTContext, x, keys_ntt, out_limbs: int, c2: int,
+                        base=None, sign: int = 1, x_is_ntt: bool = False):
+    """External product / keyswitch including the exact CRT fold and the
+    carry normalize, one launch.
+
+    x: int32[B, T, N] gadget digits (coefficient domain, any int32), or
+      with x_is_ntt int32[P, B, T, N] their spectra in this package's
+      order (what `ntt_fwd_cuda` writes; any representative): the forward
+      transform is skipped.
+    keys_ntt: int32[P, digits, T, M, N] prepared key rows, M = c2*Lk,
+      row-major over (c2, key limb); digits > 1 chains a CMux digit chain
+      (requires T == c2*out_limbs and no base); with x_is_ntt digit 0
+      consumes the spectra and the later digits transform the carry.
+    base: optional int32[B, c2, out_limbs, N]:
+      out = normalize(base + sign * fold).
+    Returns int32[B, c2, out_limbs, N] normalized."""
+    _, B = _fold_args(ctx, x, keys_ntt, out_limbs, c2, base, x_is_ntt, False)
+    if not _use_kernel(ctx, x):
+        return fused_external_fold_plain(ctx, x, keys_ntt, out_limbs, c2, base,
+                                         sign, x_is_ntt)
+    return _launch_fold("fused_external_fold", ctx, x, keys_ntt, out_limbs, c2,
+                        base, sign, x_is_ntt, 1, B)
+
+
+# --------------------------------------------------------------------------
+# kernel 5: the fold with per-item keys
+# --------------------------------------------------------------------------
+
+def fused_external_fold_batched_plain(ctx: NTTContext, x, keys_ntt,
+                                      out_limbs: int, c2: int,
+                                      x_is_ntt: bool = False, base=None,
+                                      sign: int = 1):
+    """Plain version of `fused_external_fold_batched`: item by item
+    through `fused_external_fold_plain`."""
+    return torch.stack([
+        fused_external_fold_plain(
+            ctx, x if x_is_ntt else x[a], keys_ntt[a], out_limbs, c2,
+            None if base is None else base[a], sign, x_is_ntt)
+        for a in range(keys_ntt.shape[0])], dim=0)
+
+
+def fused_external_fold_batched(ctx: NTTContext, x, keys_ntt, out_limbs: int,
+                                c2: int, x_is_ntt: bool = False, base=None,
+                                sign: int = 1):
+    """`fused_external_fold` with per-item keys: item a of the leading
+    batch axis goes against keys_ntt[a], all items in one launch.
+
+    x: int32[A, B, T, N]; keys_ntt: int32[A, P, digits, T, M, N].  With
+    x_is_ntt, x is int32[P, B, T, N]: ONE spectral operand shared by every
+    item (a batched read's level 0: the RAM rows' transform is hoisted out
+    of the address batch); digit 0 consumes it and later digits transform
+    the carry.
+    base: optional int32[A, B, c2, out_limbs, N]:
+      out = normalize(base + sign * fold).
+    Returns int32[A, B, c2, out_limbs, N] normalized.
+
+    The launch parks its residues in a scratch of min(A*B, 1024) rows, so
+    memory grows with the batch only through the output."""
+    A, B = _fold_args(ctx, x, keys_ntt, out_limbs, c2, base, x_is_ntt, True)
+    if not _use_kernel(ctx, x):
+        return fused_external_fold_batched_plain(ctx, x, keys_ntt, out_limbs,
+                                                 c2, x_is_ntt, base, sign)
+    out = _launch_fold("fused_external_fold_batched", ctx, x, keys_ntt,
+                       out_limbs, c2, base, sign, x_is_ntt, A, B)
+    return out.reshape(A, B, c2, out_limbs, ctx.n)
 
 
 # --------------------------------------------------------------------------
@@ -512,3 +610,49 @@ def fused_pack_merge(ctx: NTTContext, A, B, t_rot: int, g: int, key_ntt):
     _check(err, "fused_pack_merge")
     LAUNCHES["fused_pack_merge"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# kernel 6: one split-tree level
+# --------------------------------------------------------------------------
+
+def fused_split_plain(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
+    L = ct.shape[2]
+    child0 = _trace_step_plain(ctx, ct, key_ntt, g, L)
+    child1 = limb_ops.normalize(poly.rotate(2 * ct - child0, -t_rot))
+    return child0, child1
+
+
+def fused_split(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
+    """One level of the slot-extraction split tree, both children from one
+    keyswitch and one launch:
+
+        child0 = normalize(ct + KS(sigma_g(ct)))
+        child1 = normalize(X^-t (2 ct - child0))
+
+    ct: int32[nb, C2, L, N] normalized; key_ntt: int32[P, T, M, N] with
+    T = rank*L (the full gadget) and M = C2*Lk.  Returns (child0, child1),
+    each int32[nb, C2, L, N]."""
+    nb, C2, L, n = ct.shape
+    P, T, M, n3 = key_ntt.shape
+    rank = C2 - 1
+    if n != ctx.n or n3 != n or T != rank * L or M % C2:
+        raise ValueError(f"ct {tuple(ct.shape)} does not fit key {tuple(key_ntt.shape)}")
+    _fold_limits(T, M, C2, L, n)
+    if not _use_kernel(ctx, ct):
+        return fused_split_plain(ctx, ct, t_rot, g, key_ntt)
+    ct = _require(ct, "ct")
+    key_ntt = _require(key_ntt, "key_ntt")
+    out0, out1 = torch.empty_like(ct), torch.empty_like(ct)
+    if nb == 0:
+        return out0, out1
+    scratch = torch.empty((nb, P, M, n), dtype=I32, device=ct.device)
+    sh = _fold_shape(nb, T, M, C2, L, -1, n)
+    with torch.cuda.device(ct.device):
+        err = _lib("split").fhe_split(
+            ct.data_ptr(), key_ntt.data_ptr(), out0.data_ptr(), out1.data_ptr(),
+            scratch.data_ptr(), nb, -t_rot % (2 * n), poly.auto_inverse(n, g),
+            sh, _consts(ctx), _tables(ctx, ct.device), _stream())
+    _check(err, "fused_split")
+    LAUNCHES["fused_split"] += 1
+    return out0, out1

@@ -9,6 +9,8 @@ Layouts:
   Coordinate (coeff domain):  int32[dig, D, C, C2, Lg, N]
   Coordinate (prepared/NTT):  int32[P, dig, D, C, C2, Lg, N]
 Digit counts differ per coordinate, so an Address holds a tuple.
+A batch of addresses is the tuple of its coordinates stacked on a leading
+axis A (convert.stack_addresses): int32[A, P, dig, D, C, C2, Lg, N].
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..params import Params
-from ..ops.ntt import NTTContext
+from ..ops.ntt import NTTContext, ntt_fwd
 from ..ops import ntt_cuda
 from ..core import ggsw, rng
 
@@ -126,3 +128,75 @@ def coordinate_product(params: Params, ctx: NTTContext, ct, coord_prep,
         P, dig, C * D, C2 * Lg, n)
     out = ntt_cuda.fused_external_fold(ctx, x, keys, L, C2)
     return out.reshape(lead_shape + (C2, L, n))
+
+
+def _batched_keys(coords_prep_b):
+    """Stacked prepared coordinates [A, P, dig, D, C, C2, Lg, N] as the
+    batched fold's key rows [A, P, dig, C*D, C2*Lg, N]."""
+    A, P, dig, D, C, C2, Lg, n = coords_prep_b.shape
+    return coords_prep_b.permute(0, 1, 2, 4, 3, 5, 6, 7).reshape(
+        A, P, dig, C * D, C2 * Lg, n)
+
+
+def coordinate_product_batched(params: Params, ctx: NTTContext, ct,
+                               coords_prep_b, ct_ntt=None,
+                               trunc: tuple = (None, None)):
+    """coordinate_product of ONE shared ct against a batch of prepared
+    coordinates (leading axis A).  Returns [A, ...ct.shape].
+
+    The address-independent work -- the forward transform of the shared
+    ct's gadget digits -- is hoisted out of the batch: one ntt_fwd over
+    all rows, then one launch of ops.ntt_cuda.fused_external_fold_batched
+    in which every address's digit 0 consumes the shared spectra and its
+    remaining digits chain on the carry.
+
+    ct_ntt: optional spectra of ct's digit rows ([P, rows, C*L, N], from
+    `spectral_cache`): skips even that one transform."""
+    dig = coords_prep_b.shape[2]
+    coords_prep_b = _truncate_coord(coords_prep_b, trunc, dig)
+    n = params.n
+    A, P, _, D, C, C2, Lg, _n = coords_prep_b.shape
+    L = ct.shape[-2]
+    assert C2 == C and D <= L and (D == L or dig == 1)
+    lead_shape = ct.shape[:-3]
+    if ct_ntt is None:
+        ct_ntt = ntt_fwd(ctx, ct[..., :D, :].reshape(-1, C * D, n))
+    elif D < L:
+        # the cache holds all C*L digit rows; keep the top D per component
+        # (row slicing commutes with the transform)
+        rows = ct_ntt.shape[1]
+        ct_ntt = ct_ntt.reshape(P, rows, C, L, n)[:, :, :, :D].reshape(
+            P, rows, C * D, n)
+    y = ntt_cuda.fused_external_fold_batched(
+        ctx, ct_ntt, _batched_keys(coords_prep_b), L, C2, x_is_ntt=True)
+    return y.reshape((A,) + lead_shape + (C2, L, n))
+
+
+def spectral_cache(params: Params, ctx: NTTContext, ct):
+    """Forward transform of ct's gadget-digit rows, reusable across
+    coordinate_product_batched calls on the same ct (the address-
+    independent level-0 work; a write makes it stale).
+    ct: [..., C, L, N] -> [P, rows, C*L, N]."""
+    C, L = ct.shape[-3], ct.shape[-2]
+    return ntt_fwd(ctx, ct.reshape(-1, C * L, params.n))
+
+
+def coordinate_product_perbatch(params: Params, ctx: NTTContext, ct_b,
+                                coords_prep_b, trunc: tuple = (None, None)):
+    """Per-item coordinate products: ct_b[a] x coords_prep_b[a] for every
+    a of the leading batch axis, in one launch of
+    ops.ntt_cuda.fused_external_fold_batched.
+
+    ct_b: int32[A, ..., C, L, N]; coords_prep_b: int32[A, P, dig, ...].
+    Returns int32[A, ..., C2, L, N]."""
+    dig = coords_prep_b.shape[2]
+    coords_prep_b = _truncate_coord(coords_prep_b, trunc, dig)
+    n = params.n
+    A, P, _, D, C, C2, Lg, _n = coords_prep_b.shape
+    L = ct_b.shape[-2]
+    assert ct_b.shape[0] == A and C2 == C and D <= L and (D == L or dig == 1)
+    lead_shape = ct_b.shape[1:-3]
+    x = ct_b[..., :D, :].reshape(A, -1, C * D, n)
+    out = ntt_cuda.fused_external_fold_batched(
+        ctx, x, _batched_keys(coords_prep_b), L, C2)
+    return out.reshape((A,) + lead_shape + (C2, L, n))

@@ -24,10 +24,19 @@ def test_port_has_the_expected_layout():
                  "ops/crt.py", "ops/limb.py", "ops/poly.py", "ops/modular.py",
                  "core/rng.py", "core/glwe.py", "core/ggsw.py",
                  "core/keyswitch.py", "core/packer.py", "core/keys.py",
-                 "ram/address.py", "ram/ram.py"):
+                 "ram/address.py", "ram/ram.py", "tools/time_fold_chunks.py"):
         assert want in names, want
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
-        "fhe_core.cuh", "ntt.cu", "fold.cu", "trace.cu", "pack_merge.cu"}
+        "fhe_core.cuh", "ntt.cu", "fold.cu", "trace.cu", "pack_merge.cu",
+        "split.cu"}
+    # every source the build names is there, and nothing is left unnamed
+    from fhe_ram_tpu_torch.ops import ntt_cuda
+    assert {f"{s}.cu" for s in ntt_cuda.SOURCES} == {
+        p.name for p in (PORT / "csrc").glob("*.cu")}
+    assert set(ntt_cuda.LAUNCHES) == {
+        "ntt_fwd", "ntt_inv", "fused_external_fold",
+        "fused_external_fold_batched", "fused_trace", "fused_pack_merge",
+        "fused_split"}
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -47,6 +56,8 @@ def test_importing_the_port_loads_no_jax():
         "from fhe_ram_tpu_torch.ops import ntt, ntt_cuda, crt, limb, poly, modular\n"
         "from fhe_ram_tpu_torch.core import rng, glwe, ggsw, keyswitch, packer, keys\n"
         "from fhe_ram_tpu_torch.ram import address, ram\n"
+        "from fhe_ram_tpu_torch.tools import time_fold_chunks\n"
+        "assert callable(ram.FheRam.write) and callable(ram.FheRam.read_batch)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fhe_ram_tpu' or m.startswith('fhe_ram_tpu.')]\n"
         "assert not bad, bad\n")

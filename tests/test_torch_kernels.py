@@ -1,5 +1,7 @@
-"""The plain PyTorch version of each of the port's four CUDA kernels held
-against the JAX package's function on the same inputs, on the CPU.
+"""The plain PyTorch version of each of the read path's four CUDA kernels
+held against the JAX package's function on the same inputs, on the CPU
+(the write cycle's and the batched read's kernels: tests/test_torch_write.py
+and tests/test_torch_batch.py).
 
 The JAX side runs its composed path (the `butterfly` backend, which is
 the Pallas kernels' own plain reference); the port runs on CPU tensors,
@@ -72,9 +74,15 @@ def _atk(rnd, par, gals):
 
 
 def _prepare_both(jctx, tctx, atk):
-    jprep = jax.jit(lambda k: jks.key_prepare(jctx, k))
-    return ({g: jprep(jnp.asarray(k)) for g, k in atk.items()},
+    """(the JAX side's keys, still to be prepared by `_jprep` inside the
+    test's jitted function, so that a test compiles one JAX function; the
+    port's prepared keys)."""
+    return ({g: jnp.asarray(k) for g, k in atk.items()},
             {g: tks.key_prepare(tctx, _t(k)) for g, k in atk.items()})
+
+
+def _jprep(jctx, ks):
+    return {g: jks.key_prepare(jctx, k) for g, k in ks.items()}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -87,10 +95,11 @@ def test_external_product_matches_jax(case):
         jpar.dnum_ct, C, C, jpar.limbs_ggsw, jpar.n)).astype(np.int32)
     ct = _ct(rnd, jpar, (B,))
     D, Lg = jpar.read_ep_trunc
-    jg = jax.jit(lambda k: jggsw.prepare(jctx, k))(jnp.asarray(gg))[:, :D][..., :Lg, :]
     tg = tggsw.prepare(tctx, _t(gg))[:, :D][..., :Lg, :]
     want = np.asarray(jax.jit(
-        lambda c, k: jggsw.external_product(jpar, jctx, c, k))(jnp.asarray(ct), jg))
+        lambda c, k: jggsw.external_product(
+            jpar, jctx, c, jggsw.prepare(jctx, k)[:, :D][..., :Lg, :]))(
+            jnp.asarray(ct), jnp.asarray(gg)))
     got = tggsw.external_product(tpar, tctx, _t(ct), tg).numpy()
     assert got.dtype == np.int32 and np.array_equal(got, want)
 
@@ -121,7 +130,8 @@ def test_coordinate_product_digit_chain_matches_jax():
         2, jpar.dnum_ct, 2, 2, jpar.limbs_ggsw, jpar.n)).astype(np.int32)
     ct = _ct(rnd, jpar, (2, 4))
     want = np.asarray(jax.jit(lambda c, k: jaddress.coordinate_product(
-        jpar, jctx, c, jggsw.prepare(jctx, k)))(jnp.asarray(ct), jnp.asarray(coord)))
+        jpar, jctx, c, jggsw.prepare(jctx, k)))(
+            jnp.asarray(ct), jnp.asarray(coord)))
     got = taddress.coordinate_product(
         tpar, tctx, _t(ct), tggsw.prepare(tctx, _t(coord))).numpy()
     assert np.array_equal(got, want)
@@ -137,8 +147,8 @@ def test_keyswitch_with_base_add_matches_jax(case):
     ct, base = _ct(rnd, jpar, (B,)), _ct(rnd, jpar, (B,), bits=17)
     D, Lk = jpar.read_ks_trunc
     want = np.asarray(jax.jit(lambda c, k, b: jks.keyswitch(
-        jpar, jctx, c, k, base_add=b, in_digits=D, key_limbs=Lk))(
-            jnp.asarray(ct), jk[3], jnp.asarray(base)))
+        jpar, jctx, c, _jprep(jctx, k)[3], base_add=b, in_digits=D, key_limbs=Lk))(
+            jnp.asarray(ct), jk, jnp.asarray(base)))
     got = tks.keyswitch(tpar, tctx, _t(ct), tk[3], base_add=_t(base),
                         in_digits=D, key_limbs=Lk).numpy()
     assert np.array_equal(got, want)
@@ -158,8 +168,8 @@ def test_merge_level_matches_jax(case):
     A, Bc = _ct(rnd, jpar, (B,), bits=17), _ct(rnd, jpar, (B,), bits=17)
     trunc = jpar.read_ks_trunc
     want = np.asarray(jax.jit(lambda a, b, k: jpacker._merge_level(
-        jpar, jctx, a, b, t, g, k, trunc=trunc))(
-            jnp.asarray(A), jnp.asarray(Bc), jk[g]))
+        jpar, jctx, a, b, t, g, _jprep(jctx, k)[g], trunc=trunc))(
+            jnp.asarray(A), jnp.asarray(Bc), jk))
     got = tpacker._merge_level(tpar, tctx, _t(A), _t(Bc), t, g, tk[g],
                                trunc=trunc).numpy()
     assert np.array_equal(got, want)
@@ -176,7 +186,8 @@ def test_trace_steps_matches_jax(case, steps):
     ct = _ct(rnd, jpar, (B,))
     trunc = jpar.read_ks_trunc
     want = np.asarray(jax.jit(lambda c, k: jks.trace_steps(
-        jpar, jctx, c, k, gals, trunc=trunc))(jnp.asarray(ct), jk))
+        jpar, jctx, c, _jprep(jctx, k), gals, trunc=trunc))(
+            jnp.asarray(ct), jk))
     got = tks.trace_steps(tpar, tctx, _t(ct), tk, gals, trunc=trunc).numpy()
     assert np.array_equal(got, want)
 
@@ -191,11 +202,13 @@ def test_pack_and_full_trace_match_jax():
     cts = _ct(rnd, jpar, (8, 2))
     trunc = jpar.read_ks_trunc
     want = np.asarray(jax.jit(lambda c, k: jpacker.pack(
-        jpar, jctx, c, k, trunc=trunc))(jnp.asarray(cts), jk))
+        jpar, jctx, c, _jprep(jctx, k), trunc=trunc))(
+            jnp.asarray(cts), jk))
     got = tpacker.pack(tpar, tctx, _t(cts), tk, trunc=trunc)
     assert np.array_equal(got.numpy(), want)
     want = np.asarray(jax.jit(lambda c, k: jks.trace(
-        jpar, jctx, c, k, trunc=trunc))(jnp.asarray(want), jk))
+        jpar, jctx, c, _jprep(jctx, k), trunc=trunc))(
+            jnp.asarray(want), jk))
     assert np.array_equal(tks.trace(tpar, tctx, got, tk, trunc=trunc).numpy(), want)
 
 
@@ -233,6 +246,43 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ntt_cuda.fused_external_fold(tctx, x, keys, 3, 2)
     with pytest.raises(ValueError):  # shape mismatch
         ntt_cuda.fused_external_fold(tctx, x[:, :3], keys[:, :1], 3, 2)
+    with pytest.raises(ValueError):  # spectra need the prime axis
+        ntt_cuda.fused_external_fold(tctx, x, keys[:, :1], 3, 2, x_is_ntt=True)
     ct = torch.zeros((1, 2, 3, 64), dtype=torch.int32)
     with pytest.raises(ValueError):  # more steps than keys
         ntt_cuda.fused_trace(tctx, ct, keys[:, 0][None, :, :2], (3, 5))
+
+    # the batched fold: x [A, B, T, N] or shared spectra [P, B, T, N];
+    # keys [A, P, digits, T, M, N]; base [A, B, c2, out_limbs, N]
+    xb = torch.zeros((2, 1, 6, 64), dtype=torch.int32)
+    kb = torch.zeros((2, 3, 2, 6, 6, 64), dtype=torch.int32)
+    bb = torch.zeros((2, 1, 2, 3, 64), dtype=torch.int32)
+    assert ntt_cuda.fused_external_fold_batched(tctx, xb, kb, 3, 2).shape == (2, 1, 2, 3, 64)
+    with pytest.raises(ValueError):  # digits > 1 with a base
+        ntt_cuda.fused_external_fold_batched(tctx, xb, kb, 3, 2, base=bb)
+    with pytest.raises(ValueError):  # items of x and of keys differ
+        ntt_cuda.fused_external_fold_batched(tctx, xb[:1], kb, 3, 2)
+    with pytest.raises(ValueError):  # keys without the item axis
+        ntt_cuda.fused_external_fold_batched(tctx, xb, kb[0], 3, 2)
+    with pytest.raises(ValueError):  # shared spectra of the wrong prime count
+        ntt_cuda.fused_external_fold_batched(tctx, xb, kb, 3, 2, x_is_ntt=True)
+    with pytest.raises(ValueError):  # base of the wrong shape
+        ntt_cuda.fused_external_fold_batched(tctx, xb, kb[:, :, :1], 3, 2,
+                                             base=bb[:, :, :, :2])
+    with pytest.raises(ValueError):  # keys on another device than x
+        ntt_cuda.fused_external_fold_batched(tctx, xb, kb.to("meta"), 3, 2)
+    with pytest.raises(ValueError):  # more output limbs than the kernels fold
+        ntt_cuda.fused_external_fold_batched(tctx, xb, kb[:, :, :1], 9, 2)
+
+    # the split: the full gadget only (T == rank * L), M a multiple of C2
+    key = torch.zeros((3, 3, 8, 64), dtype=torch.int32)
+    c0, c1 = ntt_cuda.fused_split(tctx, ct, 4, 17, key)
+    assert c0.shape == c1.shape == ct.shape
+    with pytest.raises(ValueError):  # a truncated key
+        ntt_cuda.fused_split(tctx, ct, 4, 17, key[:, :2])
+    with pytest.raises(ValueError):
+        ntt_cuda.fused_split(tctx, ct, 4, 17, key[:, :, :7])
+    with pytest.raises(ValueError):  # another ring degree than the context's
+        ntt_cuda.fused_split(tctx, ct[..., :32], 4, 17, key[..., :32])
+    with pytest.raises(NotImplementedError):  # the row-sharded write's option
+        tks.extract_slots(TWIDE, tctx, ct, 2, {}, dilate=2, residue=0)

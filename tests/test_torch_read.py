@@ -1,29 +1,38 @@
-"""The slice as a whole: the PyTorch port's encrypted read against the
-JAX package's, on the CPU, on the JAX client's own ciphertexts.
+"""The slices as a whole: the PyTorch port's encrypted read, its
+read-modify-write cycle and its batched read against the JAX package's,
+on the CPU, on the JAX client's own ciphertexts.
 
-JAX keygen, encrypt_ram and address.encrypt at PARAMS_TEST_SMALL (two
-address levels, two chained CMux digits a coordinate, a pack tree and
-the full trace); convert.from_reference carries secret, keys, RAM and
-addresses across; the port's FheRam.read equals read_impl bit for bit
-(np.array_equal; integer arithmetic, tolerance 0), and the port's own
-decrypt recovers the JAX client's plaintext under the noise bound.  The
-other geometries are compared in tests/test_torch_read_presets.py."""
+JAX keygen, encrypt_ram, address.encrypt and encrypt_write_word at
+PARAMS_TEST_SMALL (two address levels, two chained CMux digits a
+coordinate, a pack tree, the full trace, a two-level split tree);
+convert.from_reference carries secret, keys, RAM, addresses and the write
+word across.  The port's FheRam.read equals read_impl, read_prepare_write
+equals rpw_impl, write equals write_impl and read_batch equals
+read_batch_impl bit for bit (np.array_equal; integer arithmetic,
+tolerance 0), and the port's own decrypt recovers the JAX client's
+plaintext under the noise bound.  One JAX client serves all tests of the
+file (a second one would cost ~25 s of compiles).  The other geometries
+are compared in tests/test_torch_read_presets.py."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import jax
+import jax.numpy as jnp
+import pytest
 import torch
 
 from fhe_ram_tpu import params as jparams
 from fhe_ram_tpu.ops.ntt import get_ntt_context as jget_ctx
 from fhe_ram_tpu.core import glwe as jglwe
+from fhe_ram_tpu.core import ggsw as jggsw
 from fhe_ram_tpu.core import keys as jkeys
-from fhe_ram_tpu.core import keyswitch as jks
 from fhe_ram_tpu.core import rng as jrng
 from fhe_ram_tpu.ram import address as jaddress
 from fhe_ram_tpu.ram import ram as jram
 
 from fhe_ram_tpu_torch import params as tparams
-from fhe_ram_tpu_torch.convert import from_reference
+from fhe_ram_tpu_torch.convert import from_reference, stack_addresses
 from fhe_ram_tpu_torch.ops.ntt import get_ntt_context as tget_ctx
 from fhe_ram_tpu_torch.core import glwe as tglwe
 from fhe_ram_tpu_torch.core import keys as tkeys
@@ -35,45 +44,182 @@ from fhe_ram_tpu_torch.ram import ram as tram
 torch.set_num_threads(1)
 
 
-
 def _addresses(par):
     return [0, 1, par.max_addr // 2 + 3, par.max_addr - 1]
 
 
-def test_read_matches_jax_on_the_jax_clients_ciphertexts():
+@pytest.fixture(scope="module")
+def client():
+    """The JAX client's secret, keys, RAM and addresses, the JAX side's
+    jitted server functions, and the port's server on the same
+    ciphertexts."""
     jpar, tpar = jparams.PARAMS_TEST_SMALL, tparams.PARAMS_TEST_SMALL
     jctx = jget_ctx(jpar.n, jpar.primes)
     src = jrng.Source(7)
     sk = jrng.ternary_secret(src.split(), jpar.rank, jpar.n, jpar.xs_density)
     js_ntt = jax.jit(lambda s: jglwe.secret_prepare(jctx, s))(sk)
-    ek = jkeys.keygen(jpar, sk, src, ggsw_gal_els=())  # the read needs no GGSW key
+    ek = jkeys.keygen(jpar, sk, src)
     data = np.random.default_rng(11).integers(
         0, 256, size=jpar.max_addr * jpar.word_size).astype(np.uint8)
     ram_ct = jram.encrypt_ram(jpar, jctx, js_ntt, data, src)
-    jatk = jax.jit(lambda ks: {g: jks.key_prepare(jctx, k) for g, k in ks.items()})(
-        ek.atk_glwe)
-    jread = jax.jit(lambda d, a, k: jram.read_impl(
-        jpar, jctx, d, jaddress.prepare(jctx, a).coordinates, k))
+    addrs = {idx: jaddress.encrypt(jpar, jctx, js_ntt, idx, src)
+             for idx in _addresses(jpar)}
+
+    def prepared(atk, atk_ggsw, tsk):
+        return jkeys.prepare(jpar, jkeys.EvaluationKeys(atk, atk_ggsw, tsk))
+
+    # read_impl and rpw_impl in ONE jitted function: at this preset (no
+    # read-path truncation) they share everything but the persisted tree,
+    # and XLA merges what is common
+    def read_and_rpw(d, a, atk, atk_ggsw, tsk):
+        k = prepared(atk, atk_ggsw, tsk).atk_glwe
+        coords = jaddress.prepare(jctx, a).coordinates
+        return (jram.read_impl(jpar, jctx, d, coords, k),
+                jram.rpw_impl(jpar, jctx, d, coords, k))
+
+    jread_rpw = jax.jit(read_and_rpw)
+    jwrite = jax.jit(lambda d, tree, w, a, atk, atk_ggsw, tsk: jram.write_impl(
+        jpar, jctx, d, tree, w, a.coordinates, prepared(atk, atk_ggsw, tsk)))
+    jkey_args = (ek.atk_glwe, ek.atk_ggsw, ek.tsk)
 
     tctx = tget_ctx(tpar.n, tpar.primes)
     carried = from_reference(sk=np.asarray(sk), keys=ek, ram=ram_ct, device="cpu")
-    assert sorted(carried.keys.atk_glwe) == sorted(ek.atk_glwe)
-    assert carried.keys.tsk.shape == ek.tsk.shape
     server = tram.FheRam(tpar, tkeys.prepare(tpar, carried.keys), device="cpu")
-    state = server.init_state(carried.data)
-    s_ntt = tglwe.secret_prepare(tctx, carried.sk)
+    c = SimpleNamespace(
+        jpar=jpar, tpar=tpar, jctx=jctx, tctx=tctx, src=src, js_ntt=js_ntt,
+        ek=ek, data=data, ram_ct=ram_ct, addrs=addrs, jread_rpw=jread_rpw,
+        jwrite=jwrite, jkey_args=jkey_args, carried=carried, server=server,
+        s_ntt=tglwe.secret_prepare(tctx, carried.sk), jresults={})
 
-    W = tpar.word_size
-    for idx in _addresses(jpar):
-        addr = jaddress.encrypt(jpar, jctx, js_ntt, idx, src)
-        want = np.asarray(jread(ram_ct, addr, jatk))
-        taddr = from_reference(address=addr, device="cpu").address
-        got = server.read(state, taddress.prepare(tctx, taddr))
+    def jax_read_rpw(idx):
+        """(read_impl output, rpw_impl output) at a fixture address,
+        computed once."""
+        if idx not in c.jresults:
+            c.jresults[idx] = jread_rpw(ram_ct, addrs[idx], *jkey_args)
+        return c.jresults[idx]
+
+    def port_address(idx):
+        """(Address, AddressPrepared) of the port for a fixture address."""
+        taddr = from_reference(address=addrs[idx], device="cpu").address
+        return taddr, taddress.prepare(tctx, taddr)
+
+    def check_word(out, idx, plain):
+        for i in range(tpar.word_size):
+            word = tglwe.cast_u8_signed(int(plain[idx * tpar.word_size + i]),
+                                        tpar.k_pt)
+            val, noise = tglwe.decode_coeff0(
+                tpar, tglwe.phase(tpar, tctx, c.s_ntt, out[i]), word)
+            assert int(val) == word and noise < -(tpar.k_pt + 1), (idx, i)
+
+    c.jax_read_rpw, c.port_address, c.check_word = jax_read_rpw, port_address, check_word
+    return c
+
+
+def test_from_reference_carries_the_clients_state(client):
+    c = client
+    assert sorted(c.carried.keys.atk_glwe) == sorted(c.ek.atk_glwe)
+    assert sorted(c.carried.keys.atk_ggsw) == sorted(c.ek.atk_ggsw) == [-1]
+    assert c.carried.keys.tsk.shape == c.ek.tsk.shape
+    assert c.carried.data.shape == c.ram_ct.shape
+    assert c.carried.address is None and c.carried.word is None
+    taddr, tprep = c.port_address(0)
+    assert len(taddr.coordinates) == len(c.addrs[0].coordinates) == 2
+    for got, want in zip(taddr.coordinates, c.addrs[0].coordinates):
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), np.asarray(want))
+    both = stack_addresses([tprep, tprep])
+    assert all(b.shape == (2,) + x.shape for b, x in zip(both, tprep.coordinates))
+    with pytest.raises(ValueError):
+        stack_addresses([])
+    with pytest.raises(RuntimeError):  # the default device is the GPU
+        from_reference(sk=np.asarray(c.carried.sk))
+
+
+def test_read_matches_jax_on_the_jax_clients_ciphertexts(client):
+    c = client
+    state = c.server.init_state(c.carried.data)
+    for idx in _addresses(c.jpar):
+        want = np.asarray(c.jax_read_rpw(idx)[0])
+        got = c.server.read(state, c.port_address(idx)[1])
         assert got.dtype == torch.int32 and got.shape == want.shape
         assert np.array_equal(got.numpy(), want), f"idx={idx}"
         # and the port's own decrypt reads the JAX client's plaintext
-        for i in range(W):
-            word = tglwe.cast_u8_signed(int(data[idx * W + i]), tpar.k_pt)
-            val, noise = tglwe.decode_coeff0(
-                tpar, tglwe.phase(tpar, tctx, s_ntt, got[i]), word)
-            assert int(val) == word and noise < -(tpar.k_pt + 1)
+        c.check_word(got, idx, c.data)
+
+
+def test_read_prepare_write_matches_jax_on_the_jax_clients_ciphertexts(client):
+    """read_prepare_write == rpw_impl: the read-out, the carried data and
+    the persisted tree."""
+    c = client
+    for idx in _addresses(c.jpar)[2:]:
+        _, (want_out, want_data, want_tree) = c.jax_read_rpw(idx)
+        state = c.server.init_state(c.carried.data)
+        out, pending = c.server.read_prepare_write(state, c.port_address(idx)[1])
+        assert pending.pending and pending.data is state.data
+        assert np.array_equal(out.numpy(), np.asarray(want_out))
+        assert np.array_equal(pending.data.numpy(), np.asarray(want_data))
+        assert len(pending.tree) == len(want_tree) == 1
+        for got_level, want_level in zip(pending.tree, want_tree):
+            assert np.array_equal(got_level.numpy(), np.asarray(want_level))
+        c.check_word(out, idx, c.data)
+
+
+def test_write_matches_jax_on_the_jax_clients_ciphertexts(client):
+    """write == write_impl (the whole new RAM); the read-back decodes to
+    the new word and two other addresses to their old ones."""
+    c = client
+    idx, others = _addresses(c.jpar)[2], _addresses(c.jpar)[:2]
+    new_word = np.array([0x5A, 0xC3, 0x17, 0x80], dtype=np.uint8)[:c.jpar.word_size]
+    w_ct = jram.encrypt_write_word(c.jpar, c.jctx, c.js_ntt, new_word, c.src)
+    _, (_, _, want_tree) = c.jax_read_rpw(idx)
+    want_new = np.asarray(c.jwrite(c.ram_ct, want_tree, w_ct, c.addrs[idx],
+                                   *c.jkey_args))
+
+    taddr, tprep = c.port_address(idx)
+    tw = from_reference(word=w_ct, device="cpu").word
+    state = c.server.init_state(c.carried.data)
+    _, pending = c.server.read_prepare_write(state, tprep)
+    state = c.server.write(pending, tw, taddr)
+    assert not state.pending and state.tree == ()
+    assert state.data.dtype == torch.int32
+    assert np.array_equal(state.data.numpy(), want_new)
+
+    plain = c.data.copy()
+    plain[idx * c.jpar.word_size: (idx + 1) * c.jpar.word_size] = new_word
+    c.check_word(c.server.read(state, tprep), idx, plain)
+    for other in others:
+        c.check_word(c.server.read(state, c.port_address(other)[1]), other, plain)
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["no_cache", "spectral_cache"])
+def test_read_batch_matches_jax_and_the_single_reads(client, cached):
+    """read_batch of 3 addresses == read_batch_impl == three single reads,
+    with the spectral cache and without (the JAX package's CPU path
+    ignores its cache and recomputes: one JAX result serves both)."""
+    c = client
+    idxs = _addresses(c.jpar)[1:]
+    if "batch" not in c.jresults:
+        coords_b = tuple(
+            jnp.stack([c.addrs[i].coordinates[j] for i in idxs], axis=0)
+            for j in range(len(c.addrs[idxs[0]].coordinates)))
+        c.jresults["batch"] = np.asarray(jax.jit(
+            lambda d, cb, atk: jram.read_batch_impl(
+                c.jpar, c.jctx, d,
+                tuple(jax.vmap(lambda g: jggsw.prepare(c.jctx, g))(x) for x in cb),
+                {g: jkeys.keyswitch.key_prepare(c.jctx, k) for g, k in atk.items()}))(
+                    c.ram_ct, coords_b, c.ek.atk_glwe))
+    want = c.jresults["batch"]
+
+    state = c.server.init_state(c.carried.data)
+    preps = [c.port_address(i)[1] for i in idxs]
+    cache = c.server.spectral_cache(state) if cached else None
+    got = c.server.read_batch(state, stack_addresses(preps), cache=cache)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    for k, idx in enumerate(idxs):
+        single = c.server.read(state, preps[k], cache=cache)
+        assert torch.equal(got[k], single)
+        assert np.array_equal(single.numpy(), np.asarray(c.jax_read_rpw(idx)[0]))
+        c.check_word(got[k], idx, c.data)
+    # slices of 2 + 1 through the API give the same integers
+    sliced = c.server.read_batch(state, stack_addresses(preps), cache=cache,
+                                 batch_slice=2)
+    assert torch.equal(sliced, got)
