@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's encrypted RAM once on one NVIDIA GPU: reads,
-read-modify-write cycles and batched reads.
+read-modify-write cycles, batched reads and batched read-modify-writes.
 
     python3 chip_smoke.py [--seed N] [--reads N] [--profile] [--kernels-only]
                           [--verbose-build]
@@ -27,7 +27,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
   read_batch     16 addresses in one read_batch call, with the spectral
                  cache and without: every word decodes and equals the single
                  read's ciphertext bit for bit; then 64 addresses
-  kernels        one line for all kernels: launches over the three paths,
+  rmw_batch      a server with tree_kernels=True: two chained rmw_batch calls
+                 of 16 distinct addresses (the pre-write words come out, the
+                 new ones read back, 16 other addresses are unchanged), launches
+                 per call, then times of both servers, bit-equal
+  rmw_batch_vs_plain  a batch of 4 and the timed batch of 16 again through
+                 the plain versions on the card: outs and the whole new
+                 RAM bit-equal
+  tree_kernels_cycle  the single cycle with tree_kernels=True beside the
+                 default's, bit-equal; read_batch(pack_deep=4) beside the default
+  kernels        one line for all kernels: launches over the four paths,
                  error, time, the plain version's time, and the card's bound
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA device and
@@ -56,6 +65,7 @@ SCALAR_OPS_PER_S = 67e12
 CYCLES = 4       # read-modify-write cycles
 BATCH = 16       # addresses of the batched read held against single reads
 BIG_BATCH = 64   # addresses of one more, larger batched read
+NB_RMW = 16      # addresses of the batched read-modify-write
 
 
 def emit(obj):
@@ -116,9 +126,9 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (a first look at new kernels)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more read, one more write cycle and one "
-                         "more batched read with torch.profiler: device time "
-                         "by kernel and the device's idle share")
+                    help="trace one more read, write cycle, batched read and "
+                         "batched read-modify-write with torch.profiler: device "
+                         "time by kernel and the device's idle share")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print what ptxas says of each kernel (registers, spills)")
     args = ap.parse_args()
@@ -182,28 +192,41 @@ def main():
         return ntt_cuda.ntt_fwd_cuda(ctx, limbs(shape))
 
     checks = {}
+    poly_b = 4 * n  # bytes of one int32 polynomial
 
-    def check(name, shape_note, kernel_fn, reps=7, plain_reps=3):
+    def check(name, shape_note, kernel_fn, reps=7, plain_reps=3,
+              per_level_fn=None, work=None):
         """Run kernel and plain version on the same tensors; compare; time.
-        kernel_fn returns one tensor or a tuple of them."""
-        def outputs():
-            out = kernel_fn()
+        kernel_fn returns one tensor or a tuple of them.  per_level_fn: the
+        same function as a sequence of per-level kernel launches (a tree
+        kernel's yardstick); held bit-equal and timed as well.  work: (bytes
+        moved, operations) of this shape, for its bound beside its time."""
+        def outputs(fn):
+            out = fn()
             torch.cuda.synchronize()
             return out if isinstance(out, tuple) else (out,)
-        got = outputs()
+        got = outputs(kernel_fn)
         with ntt_cuda.plain_versions():
-            want = outputs()
+            want = outputs(kernel_fn)
         err, ok = 0, len(got) == len(want)
         for g_, w_ in zip(got, want):
             if g_.shape != w_.shape or g_.dtype != w_.dtype:
                 fail(f"{name} {shape_note}: shape/dtype {g_.shape} {g_.dtype}")
             err = max(err, int((g_.to(torch.int64) - w_.to(torch.int64)).abs().max()))
             ok = ok and torch.equal(g_, w_)
+        del want
         ms = time_ms(kernel_fn, reps, 2, flush)
         with ntt_cuda.plain_versions():
             plain_ms = time_ms(kernel_fn, plain_reps, 1, flush)
         rec = {"shape": shape_note, "ok": ok, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms}
+        if work is not None:
+            rec["bound_ms"], rec["bound_by"] = bound(*work)
+        if per_level_fn is not None:
+            levels = outputs(per_level_fn)
+            ok = ok and all(torch.equal(a, b) for a, b in zip(got, levels))
+            del levels
+            rec.update(ok=ok, per_level_ms=time_ms(per_level_fn, reps, 2, flush))
         checks.setdefault(name, []).append(rec)
         if not ok:
             emit({"phase": "kernel_check", "name": name, **rec})
@@ -313,6 +336,76 @@ def main():
         check("fused_pack_merge", f"A,B[{nb},{C},{L},4096] t={t_rot} g={g} key[3,{T_kf},{M_kf},4096] (untruncated)",
               lambda: ntt_cuda.fused_pack_merge(ctx, A, Bc, t_rot, g, key_kf))
 
+    # -- the shapes a batch of NB_RMW addresses gives the same wrappers -------
+    # kernel 5 with the full gadget and one key an address, as the batched
+    # read-modify-write launches it: level 0 (shared spectra, NB_RMW x 256
+    # rows, so each row group walks several rows), level 1 and d_lo (W rows
+    # an address), upd (256 rows an address with their own transforms)
+    keys_bf = spectra((NB_RMW, 1, T_ef, M_ef, n)).permute(
+        1, 0, 2, 3, 4, 5).contiguous()
+    sf0 = ntt_cuda.ntt_fwd_cuda(ctx, limbs((W * R, T_ef, n)))
+    key_polys = NB_RMW * P * T_ef * M_ef
+    check("fused_external_fold_batched",
+          f"x_is_ntt x[3,{W*R},{T_ef},4096] keys[{NB_RMW},3,1,{T_ef},{M_ef},4096] (rmw_batch level 0)",
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, sf0, keys_bf, L, C,
+                                                       x_is_ntt=True),
+          plain_reps=1,
+          work=(poly_b * (P * W * R * T_ef + key_polys + NB_RMW * W * R * C * L),
+                fold_ops(NB_RMW * W * R, T_ef, M_ef, n, spectral=True)))
+    del sf0
+    xbf1 = limbs((NB_RMW, W, T_ef, n))
+    check("fused_external_fold_batched",
+          f"x[{NB_RMW},{W},{T_ef},4096] keys[{NB_RMW},3,1,{T_ef},{M_ef},4096] (rmw_batch level 1, d_lo)",
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, xbf1, keys_bf, L, C),
+          work=(poly_b * (NB_RMW * W * (T_ef + C * L) + key_polys),
+                fold_ops(NB_RMW * W, T_ef, M_ef, n)))
+    xbu = limbs((NB_RMW, W * R, T_ef, n))
+    check("fused_external_fold_batched",
+          f"x[{NB_RMW},{W*R},{T_ef},4096] keys[{NB_RMW},3,1,{T_ef},{M_ef},4096] (rmw_batch upd)",
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, xbu, keys_bf, L, C),
+          plain_reps=1,
+          work=(poly_b * (NB_RMW * W * R * (T_ef + C * L) + key_polys),
+                fold_ops(NB_RMW * W * R, T_ef, M_ef, n)))
+    del xbu, keys_bf
+    # kernel 2: the two folds of the GGSW inversion over all NB_RMW addresses
+    nbi = NB_RMW * D_
+    xak, bak = limbs((nbi, rank * D_, n)), limbs((nbi, C, Lg, n), bits=17)
+    check("fused_external_fold", f"x[{nbi},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (batched inversion keyswitch)",
+          lambda: ntt_cuda.fused_external_fold(ctx, xak, keys_ak, Lg, C,
+                                               base=bak, sign=-1),
+          work=(poly_b * (nbi * (rank * D_ + 2 * C * Lg) + P * rank * D_ * C * Lgk),
+                fold_ops(nbi, rank * D_, C * Lgk, n)))
+    xts = limbs((nbi, C * D_, n))
+    check("fused_external_fold", f"x[{nbi},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (batched tensor key)",
+          lambda: ntt_cuda.fused_external_fold(ctx, xts, keys_ts, Lg, C),
+          work=(poly_b * (nbi * (C * D_ + C * Lg) + P * C * D_ * C * Lgk),
+                fold_ops(nbi, C * D_, C * Lgk, n)))
+    # kernels 3 and 4 with the batch folded into the row axis: the trace of
+    # NB_RMW x W roots and the first merge level of NB_RMW x W x 32 pairs,
+    # untruncated (rmw_batch) and truncated (read_batch)
+    ctb = limbs((NB_RMW * W, C, L, n))
+    check("fused_trace", f"ct[{NB_RMW*W},{C},{L},4096] keys[{S},3,{T_kf},{M_kf},4096] (untruncated, batch of {NB_RMW})",
+          lambda: ntt_cuda.fused_trace(ctx, ctb, keys_trf, gals), plain_reps=1,
+          work=(poly_b * (2 * NB_RMW * W * C * L + S * P * T_kf * M_kf),
+                S * fold_ops(NB_RMW * W, T_kf, M_kf, n)))
+    check("fused_trace", f"ct[{NB_RMW*W},{C},{L},4096] keys[{S},3,{T_ks},{M_ks},4096] (batch of {NB_RMW})",
+          lambda: ntt_cuda.fused_trace(ctx, ctb, keys_tr, gals), plain_reps=1,
+          work=(poly_b * (2 * NB_RMW * W * C * L + S * P * T_ks * M_ks),
+                S * fold_ops(NB_RMW * W, T_ks, M_ks, n)))
+    nbm = NB_RMW * W * R // 2
+    A, Bc = limbs((nbm, C, L, n), bits=17), limbs((nbm, C, L, n), bits=17)
+    check("fused_pack_merge", f"A,B[{nbm},{C},{L},4096] t=32 g={(n >> 5) + 1} key[3,{T_kf},{M_kf},4096] (untruncated, batch of {NB_RMW})",
+          lambda: ntt_cuda.fused_pack_merge(ctx, A, Bc, 32, (n >> 5) + 1, key_kf),
+          plain_reps=1,
+          work=(poly_b * (3 * nbm * C * L + P * T_kf * M_kf),
+                fold_ops(nbm, T_kf, M_kf, n)))
+    check("fused_pack_merge", f"A,B[{nbm},{C},{L},4096] t=32 g={(n >> 5) + 1} (batch of {NB_RMW})",
+          lambda: ntt_cuda.fused_pack_merge(ctx, A, Bc, 32, (n >> 5) + 1, key_pm),
+          plain_reps=1,
+          work=(poly_b * (3 * nbm * C * L + P * T_ks * M_ks),
+                fold_ops(nbm, T_ks, M_ks, n)))
+    del A, Bc, ctb
+
     # kernel 6: last (nb = 128) and first (nb = 4) level of the write's
     # slot extraction
     for nb, l in ((W * R // 2, 5), (W, 0)):
@@ -320,6 +413,55 @@ def main():
         t_rot, g = 1 << l, gals[l]
         check("fused_split", f"ct[{nb},{C},{L},4096] t={t_rot} g={g} key[3,{T_kf},{M_kf},4096]",
               lambda: ntt_cuda.fused_split(ctx, cts, t_rot, g, key_kf))
+
+    # kernels 7 and 8: the one-launch trees at the shapes of a single write
+    # (nb = W = 4 roots) and of a batched read-modify-write of 16 (nb = 64),
+    # each also against the per-level launches that do the same work, and
+    # one small odd shape each
+    def split_levels(ct_, keys_, S_):
+        nodes = ct_[:, None]
+        for l in range(S_):
+            c0, c1 = ntt_cuda.fused_split(
+                ctx, nodes.reshape((-1,) + tuple(ct_.shape[1:])), 1 << l,
+                gals[l], keys_[l])
+            nodes = torch.cat([c0.reshape((ct_.shape[0], -1) + tuple(ct_.shape[1:])),
+                               c1.reshape((ct_.shape[0], -1) + tuple(ct_.shape[1:]))],
+                              dim=1)
+        return nodes
+
+    def merge_levels(cts_, keys_):
+        M_, nb_ = cts_.shape[0], cts_.shape[1]
+        levels_ = M_.bit_length() - 1
+        for s_ in range(levels_):
+            l = levels_ - 1 - s_
+            R_ = M_ >> (s_ + 1)
+            out = ntt_cuda.fused_pack_merge(
+                ctx, cts_[:R_].reshape((-1,) + tuple(cts_.shape[2:])),
+                cts_[R_: 2 * R_].reshape((-1,) + tuple(cts_.shape[2:])),
+                1 << l, (n >> l) + 1, keys_[s_])
+            cts_ = out.reshape((R_, nb_) + tuple(cts_.shape[2:]))
+        return cts_[0]
+
+    S_ST, M_PT = 6, 32        # 64 slots a root; 32 leaves a pack tree
+    keys_st = spectra((S_ST, T_kf, M_kf, n)).permute(1, 0, 2, 3, 4).contiguous()
+    for nb, S_ in ((W, S_ST), (NB_RMW * W, S_ST), (3, 1)):
+        ct_s = limbs((nb, C, L, n))
+        check("fused_split_tree",
+              f"ct[{nb},{C},{L},4096] keys[{S_},3,{T_kf},{M_kf},4096]",
+              lambda: ntt_cuda.fused_split_tree(ctx, ct_s, gals[:S_], keys_st[:S_]),
+              plain_reps=1,
+              per_level_fn=lambda: split_levels(ct_s, keys_st, S_))
+    del ct_s
+    keys_pt = spectra((5, T_kf, M_kf, n)).permute(1, 0, 2, 3, 4).contiguous()
+    for nb, M_ in ((W, M_PT), (NB_RMW * W, M_PT), (3, 2)):
+        lv_ = M_.bit_length() - 1
+        cts_p = limbs((M_, nb, C, L, n), bits=17)
+        check("fused_pack_tree",
+              f"cts[{M_},{nb},{C},{L},4096] keys[{lv_},3,{T_kf},{M_kf},4096]",
+              lambda: ntt_cuda.fused_pack_tree(ctx, cts_p, keys_pt[5 - lv_:]),
+              plain_reps=1,
+              per_level_fn=lambda: merge_levels(cts_p, keys_pt[5 - lv_:]))
+    del cts_p
     emit({"phase": "kernel_checks", "ok": True, "tolerance": 0, "checks": checks})
     if args.kernels_only:
         return
@@ -554,6 +696,163 @@ def main():
     del got_big, big_coords
     emit(rec)
 
+    # ---- the batched read-modify-write, with the one-launch tree kernels -----
+    tree_server = ram_mod.FheRam(PAR, ekp, device=dev, tree_kernels=True)
+    used = set(addrs) | set(picks)
+    more = [int(a) for a in np.random.default_rng(args.seed + 100).permutation(
+        PAR.max_addr) if int(a) not in used][:2 * NB_RMW + 4]
+    rmw_idx, quiet_idx, small_idx = (more[:NB_RMW], more[NB_RMW: 2 * NB_RMW],
+                                     more[2 * NB_RMW:])
+
+    def address_batch(idxs):
+        """(prepared addresses, their stacking, the coefficient-domain
+        stacking) of a list of addresses."""
+        coeff = [address_mod.encrypt(PAR, ctx, s_ntt, i, src) for i in idxs]
+        preps = [address_mod.prepare(ctx, a) for a in coeff]
+        return preps, stack_addresses(preps), stack_addresses(coeff)
+
+    def word_batch(seed, count):
+        words = np.random.default_rng(seed).integers(
+            0, 256, size=(count, W)).astype(np.uint8)
+        return words, torch.stack([
+            ram_mod.encrypt_write_word(PAR, ctx, s_ntt, w, src) for w in words])
+
+    rmw_preps, rmw_prep_b, rmw_coeff_b = address_batch(rmw_idx)
+    quiet_b = address_batch(quiet_idx)[1]
+    # the client's part first (encrypting words launches transforms), so that
+    # the counted window holds the server's two calls and nothing else
+    call_words = [word_batch(args.seed + 200 + call, NB_RMW) for call in range(2)]
+    call_outs = []
+    ntt_cuda.reset_launches()
+    for call, (_, w_b) in enumerate(call_words):   # the second call runs on
+        (outs_b, state), ms, l_rb = launches_of(   # the first one's new RAM
+            lambda: tree_server.rmw_batch(state, rmw_prep_b, rmw_coeff_b, w_b))
+        expect_launches(f"rmw_batch call {call}", l_rb,
+                        fused_external_fold_batched=4, fused_external_fold=4,
+                        ntt_fwd=3, fused_pack_merge=1, fused_pack_tree=1,
+                        fused_trace=1, fused_split_tree=1)
+        call_outs.append(outs_b)
+    rmw_batch_launches = dict(ntt_cuda.LAUNCHES)
+    rb_launches_per_call = l_rb
+    for k in ("fused_split_tree", "fused_pack_tree", "fused_external_fold_batched",
+              "fused_external_fold", "fused_pack_merge", "fused_trace", "ntt_fwd"):
+        if rmw_batch_launches[k] == 0:
+            fail(f"kernel {k} was not launched on the batched read-modify-write's path")
+    worst_rb = -1e9
+    for (words, _), outs_b in zip(call_words, call_outs):
+        for k, idx in enumerate(rmw_idx):   # the PRE-write words come out
+            worst_rb = max(worst_rb, decode(outs_b[k], idx, "rmw_batch read-out"))
+            data[idx * W: (idx + 1) * W] = words[k]
+    del call_outs, outs_b
+    # outside the counted window: the new words read back, 16 other addresses
+    # are unchanged
+    back = server.read_batch(state, rmw_prep_b)
+    quiet = server.read_batch(state, quiet_b)
+    for k in range(NB_RMW):
+        worst_rb = max(worst_rb, decode(back[k], rmw_idx[k], "rmw_batch read-back"))
+        worst_rb = max(worst_rb, decode(quiet[k], quiet_idx[k],
+                                        "read of an address rmw_batch left alone"))
+    # steady times, both servers on the same state and words, bit-equal
+    words, w_b = word_batch(args.seed + 202, NB_RMW)
+    torch.cuda.reset_peak_memory_stats()
+    tree_ms, level_ms, l_levels = [], [], None
+    for _ in range(4):
+        (outs_t, st_t), ms = timed(
+            lambda: tree_server.rmw_batch(state, rmw_prep_b, rmw_coeff_b, w_b))
+        tree_ms.append(ms)
+        (outs_l, st_l), ms, l_levels = launches_of(
+            lambda: server.rmw_batch(state, rmw_prep_b, rmw_coeff_b, w_b))
+        level_ms.append(ms)
+    rmw_batch_peak = torch.cuda.max_memory_allocated()
+    expect_launches("rmw_batch with the per-level kernels", l_levels,
+                    fused_external_fold_batched=4, fused_external_fold=4,
+                    ntt_fwd=3, fused_pack_merge=6, fused_trace=1, fused_split=6)
+    if not (torch.equal(outs_t, outs_l) and torch.equal(st_t.data, st_l.data)):
+        fail("rmw_batch: tree_kernels=True and False disagree")
+    del outs_l, st_l, back, quiet
+    seq_ms = statistics.median([a + b for a, b in zip(rpw_ms, write_ms)])
+    emit({"phase": "rmw_batch", "ok": True, "batch": NB_RMW, "chained_calls": 2,
+          "addresses": rmw_idx, "unchanged_addresses": quiet_idx,
+          "rmw_batch_ms": statistics.median(tree_ms), "rmw_batch_ms_all": tree_ms,
+          "rmws_per_s": NB_RMW / statistics.median(tree_ms) * 1e3,
+          "per_level_rmw_batch_ms": statistics.median(level_ms),
+          "per_level_rmw_batch_ms_all": level_ms,
+          "per_level_rmws_per_s": NB_RMW / statistics.median(level_ms) * 1e3,
+          "tree_kernels_equal_per_level": True,
+          "sequential_rpw_plus_write_ms": seq_ms,
+          "sequential_rmws_per_s": 1e3 / seq_ms,
+          "peak_device_bytes": rmw_batch_peak,
+          "worst_noise_log2": worst_rb, "noise_bound_log2": -(PAR.k_pt + 1),
+          "launches_per_call": rb_launches_per_call,
+          "launches_per_call_per_level": l_levels})
+
+    # ---- a batched read-modify-write of 4 through the plain versions ---------
+    _, small_prep_b, small_coeff_b = address_batch(small_idx)
+    _, w_small = word_batch(args.seed + 203, len(small_idx))
+    outs_k, st_k = tree_server.rmw_batch(state, small_prep_b, small_coeff_b, w_small)
+    with ntt_cuda.plain_versions():
+        (outs_p, st_p), plain_rb_ms = timed(lambda: tree_server.rmw_batch(
+            state, small_prep_b, small_coeff_b, w_small))
+    if not (torch.equal(outs_k, outs_p) and torch.equal(st_k.data, st_p.data)):
+        fail("rmw_batch: kernels and plain versions disagree")
+    del outs_k, st_k
+    # and the timed batch of NB_RMW itself, where the folds, the first merge
+    # and the trace run at their widest
+    with ntt_cuda.plain_versions():
+        (outs_p, st_p), plain_rb_full_ms = timed(lambda: tree_server.rmw_batch(
+            state, rmw_prep_b, rmw_coeff_b, w_b))
+    if not (torch.equal(outs_t, outs_p) and torch.equal(st_t.data, st_p.data)):
+        fail(f"rmw_batch of {NB_RMW}: kernels and plain versions disagree")
+    emit({"phase": "rmw_batch_vs_plain", "ok": True,
+          "batches": [len(small_idx), NB_RMW],
+          "compared": "outs and all of the new RAM "
+                      f"int32{list(st_p.data.shape)}",
+          "plain_rmw_batch_ms": plain_rb_ms,
+          f"plain_rmw_batch_{NB_RMW}_ms": plain_rb_full_ms})
+    del outs_p, st_p, outs_t, st_t
+
+    # ---- the single cycle and the batched read with the tree kernels ---------
+    st0, cap_, addr, w_ct, out, st1 = last_cycle
+    cyc = {"rpw": [], "write": [], "tree_rpw": [], "tree_write": []}
+    for _ in range(4):
+        (out_l, pend_l), ms = timed(lambda: server.read_prepare_write(st0, cap_))
+        cyc["rpw"].append(ms)
+        new_l, ms = timed(lambda: server.write(pend_l, w_ct, addr))
+        cyc["write"].append(ms)
+        (out_t, pend_t), ms, l_trpw = launches_of(
+            lambda: tree_server.read_prepare_write(st0, cap_))
+        cyc["tree_rpw"].append(ms)
+        new_t, ms, l_twr = launches_of(lambda: tree_server.write(pend_t, w_ct, addr))
+        cyc["tree_write"].append(ms)
+    expect_launches("read_prepare_write with the tree kernels", l_trpw,
+                    fused_external_fold=2, fused_pack_merge=1, fused_pack_tree=1,
+                    fused_trace=1)
+    expect_launches("write with the tree kernels", l_twr, fused_trace=1,
+                    fused_external_fold=6, ntt_fwd=2, fused_split_tree=1)
+    if not (torch.equal(out_t, out) and torch.equal(new_t.data, st1.data)
+            and torch.equal(out_l, out) and torch.equal(new_l.data, st1.data)):
+        fail("the cycle with tree_kernels=True differs from the default's")
+    deep_all = []
+    for _ in range(4):
+        got_d, ms = timed(lambda: server.read_batch(st1, coords_b, pack_deep=4))
+        deep_all.append(ms)
+    flat_all = [timed(lambda: server.read_batch(st1, coords_b))[1] for _ in range(4)]
+    if not torch.equal(got_d, server.read_batch(st1, coords_b)):
+        fail("read_batch(pack_deep=4) differs from the default schedule")
+    emit({"phase": "tree_kernels_cycle", "ok": True,
+          "equal_to_default": True,
+          "rpw_ms": statistics.median(cyc["rpw"]),
+          "write_ms": statistics.median(cyc["write"]),
+          "tree_rpw_ms": statistics.median(cyc["tree_rpw"]),
+          "tree_write_ms": statistics.median(cyc["tree_write"]),
+          "ms_all": cyc,
+          "launches": {"read_prepare_write": l_trpw, "write": l_twr},
+          "read_batch_pack_deep_4_ms": statistics.median(deep_all),
+          "read_batch_pack_deep_4_ms_all": deep_all,
+          "read_batch_default_ms": statistics.median(flat_all),
+          "read_batch_default_ms_all": flat_all, "batch": BATCH})
+    del got_d, out_l, pend_l, new_l, out_t, pend_t, new_t
+
     # ---- optional: where the time of one call of each path goes -------------
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -590,14 +889,25 @@ def main():
         traced(f"read_batch of {BATCH}",
                lambda: server.read_batch(state, coords_b),
                statistics.median(batch_all))
+        traced(f"rmw_batch of {NB_RMW}, tree kernels",
+               lambda: tree_server.rmw_batch(state, rmw_prep_b, rmw_coeff_b, w_b),
+               statistics.median(tree_ms))
+        traced(f"rmw_batch of {NB_RMW}, per-level kernels",
+               lambda: server.rmw_batch(state, rmw_prep_b, rmw_coeff_b, w_b),
+               statistics.median(level_ms))
+        pend = []
+        traced("read_prepare_write, tree kernels",
+               lambda: pend.append(tree_server.read_prepare_write(st0, cap_)[1]),
+               statistics.median(cyc["tree_rpw"]))
+        traced("write, tree kernels",
+               lambda: tree_server.write(pend[0], w_ct, addr),
+               statistics.median(cyc["tree_write"]))
 
     # ---- the kernels' line --------------------------------------------------
-    poly_b = 4 * n  # bytes of one int32 polynomial
-
-    # launches over the three paths, each counted from 0 just before it was
+    # launches over the four paths, each counted from 0 just before it was
     # driven to just after (comparisons and read-backs are outside)
     total_launches = {k: path_launches[k] + rmw_launches[k] + batch_launches[k]
-                      for k in path_launches}
+                      + rmw_batch_launches[k] for k in path_launches}
     for k, v in total_launches.items():
         if v == 0:
             fail(f"kernel {k} was launched on none of the paths")
@@ -605,19 +915,24 @@ def main():
     def entry(name, source, replaces, shape_idx, bytes_moved, ops):
         rec = checks[name][shape_idx]
         b_ms, b_by = bound(bytes_moved, ops)
-        return {"name": name, "route": "cuda",
-                "source": f"fhe_ram_tpu_torch/csrc/{source}",
-                "replaces": f"fhe_ram_tpu/ops/ntt_pallas.py:{replaces}",
-                "shape": rec["shape"], "launches": total_launches[name],
-                "launches_by_path": {"read": path_launches[name],
-                                     "rmw": rmw_launches[name],
-                                     "read_batch": batch_launches[name]},
-                "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
-                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        out = {"name": name, "route": "cuda",
+               "source": f"fhe_ram_tpu_torch/csrc/{source}",
+               "replaces": f"fhe_ram_tpu/ops/ntt_pallas.py:{replaces}",
+               "shape": rec["shape"], "launches": total_launches[name],
+               "launches_by_path": {"read": path_launches[name],
+                                    "rmw": rmw_launches[name],
+                                    "read_batch": batch_launches[name],
+                                    "rmw_batch": rmw_batch_launches[name]},
+               "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
+               "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if "per_level_ms" in rec:
+            out["per_level_ms"] = rec["per_level_ms"]
+        return out
 
     B0 = W * R
     nb0 = W * R // 2
+    nbr = NB_RMW * W
     kernels = [
         entry("ntt_fwd", "ntt.cu", 454, 0,
               36 * poly_b * (1 + P), 36 * P * ntt_ops(n)),
@@ -642,6 +957,18 @@ def main():
         entry("fused_split", "split.cu", 1699, 0,
               poly_b * (3 * nb0 * C * L + P * T_kf * M_kf),
               fold_ops(nb0, T_kf, M_kf, n) + 4 * nb0 * C * L * n),
+        # the batched read-modify-write's extraction: nbr = 16 * W roots in,
+        # 64 leaves a root out, six keys; level l is a split of nbr * 2^l rows
+        entry("fused_split_tree", "split_tree.cu", 1821, 1,
+              poly_b * (nbr * C * L * (1 + (1 << S_ST)) + S_ST * P * T_kf * M_kf),
+              sum(fold_ops(nbr << l, T_kf, M_kf, n) + 4 * (nbr << l) * C * L * n
+                  for l in range(S_ST))),
+        # its pack below 32 leaves: 32 * nbr rows in, nbr out, five keys;
+        # level s merges (32 >> (s + 1)) * nbr row pairs
+        entry("fused_pack_tree", "pack_tree.cu", 1939, 1,
+              poly_b * (nbr * C * L * (M_PT + 1) + 5 * P * T_kf * M_kf),
+              sum(fold_ops((M_PT >> (s_ + 1)) * nbr, T_kf, M_kf, n)
+                  for s_ in range(5))),
     ]
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 2)})

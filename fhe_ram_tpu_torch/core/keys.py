@@ -91,26 +91,28 @@ def prepare(params: Params, keys: EvaluationKeys) -> EvaluationKeysPrepared:
 
 def ggsw_automorphism(params: Params, ctx, ggsw_ct, g: int,
                       keys: EvaluationKeysPrepared):
-    """Map GGSW(mu) (coefficient domain, [D, C, C2, Lg, N]) to
+    """Map GGSW(mu) (coefficient domain, [..., D, C, C2, Lg, N]) to
     GGSW(sigma_g(mu)) -- for monomials with g = -1:
-    GGSW(X^e) -> GGSW(X^-e).
+    GGSW(X^e) -> GGSW(X^-e).  Leading axes are a batch of GGSWs under the
+    same keys: all their rows go through each keyswitch launch together,
+    and every row's integers are those of a call on its GGSW alone.
 
     Requires the galois element's GGSW-level key (keygen ggsw_gal_els).
     Generic in rank: the b-rows are keyswitched under sigma_g, then every
     a-row c is rebuilt as b-row x tsk[c]."""
-    D, C, C2, Lg, n = ggsw_ct.shape
+    D, C, C2, Lg, n = ggsw_ct.shape[-5:]
     rank = params.rank
     assert C == rank + 1 and C2 == rank + 1
     assert g in keys.atk_ggsw, f"no GGSW automorphism key for g={g}"
     # b-rows: (d, c=rank) -- GLWEs encrypting mu * g_d.  Batch over d.
-    rowb = keyswitch.automorphism_ks(params, ctx, ggsw_ct[:, rank], g,
+    rowb = keyswitch.automorphism_ks(params, ctx, ggsw_ct[..., rank, :, :, :], g,
                                      keys.atk_ggsw[g], out_limbs=Lg)
     # a-rows: encryptions of -s_c * sigma(mu) * g_d via the tensor key.
     rows = [ggsw.external_product(params, ctx, rowb, keys.tsk[:, c],
                                   out_limbs=Lg)
             for c in range(rank)]
     rows.append(rowb)
-    return torch.stack(rows, dim=1)  # [D, C(=rank+1), C2, Lg, N]
+    return torch.stack(rows, dim=-4)  # [..., D, C(=rank+1), C2, Lg, N]
 
 
 def ggsw_automorphism_inv(params: Params, ctx, ggsw_ct,

@@ -156,9 +156,14 @@ def trace_steps(params: Params, ctx: NTTContext, ct, auto_keys_ntt: dict,
     return out.reshape(lead + out.shape[1:])
 
 
+# most leaves of the one-launch split tree (the bound the reference routes
+# by; larger extractions take the per-level kernel)
+_SPLIT_TREE_MAX = 64
+
+
 def extract_slots(params: Params, ctx: NTTContext, ct, count: int,
                   auto_keys_ntt: dict, bounded_support: bool = False,
-                  dilate: int = 1, residue=None):
+                  dilate: int = 1, residue=None, tree: bool = False):
     """All-slot extraction: out[..., m, :, :, :] = trace(X^-m ct) for
     m in [0, count), i.e. per slot an encryption of [slot_m(ct), 0...].
 
@@ -169,6 +174,9 @@ def extract_slots(params: Params, ctx: NTTContext, ct, count: int,
     children (ops.ntt_cuda.fused_split: one launch a level); the tail is
     one launch of fused_trace.
 
+    tree=True: all levels in ONE launch (ops.ntt_cuda.fused_split_tree)
+    when dilate == 1 and the tree has 2 .. 64 leaves; the same integers.
+
     bounded_support=True: the caller guarantees that ct's plaintext is
     exactly zero outside slots [0, count) (the write path's deltas).
     Then, when count * 2^ceil(log2 count) <= N, the tail steps are
@@ -176,16 +184,22 @@ def extract_slots(params: Params, ctx: NTTContext, ct, count: int,
     shrinks to 1/2^s.  Without the flag every leaf passes log_n
     keyswitches after the single 1/N pre-scale.
 
-    dilate / residue select one residue class of slots for a row-sharded
-    write; that path is not in this package yet and anything but
-    dilate == 1 is refused."""
-    if dilate != 1 or residue is not None:
-        raise NotImplementedError(
-            "extract_slots: dilate/residue belong to the row-sharded write, "
-            "which this package does not have yet")
+    dilate / residue (the row-sharded write): return ONLY the slots m
+    with m = residue (mod dilate), ordered by m // dilate --
+    out[..., j, :, :, :] = trace(X^-(j*dilate+residue) ct).  Split level l
+    branches on bit l of m (LSB first), so after the first log2(dilate)
+    levels node k holds exactly the residue-k subtree: the caller's node
+    is selected there (residue: an int or a 0-dim integer tensor) and the
+    remaining levels and the tail run on 1/dilate of the tree.  count must
+    be a multiple of dilate; s, tail and pre-scale are the global
+    quantities."""
     n = params.n
     s = max(count - 1, 0).bit_length()  # ceil(log2(count))
     assert (1 << s) <= n
+    assert dilate >= 1 and dilate & (dilate - 1) == 0 and dilate <= (1 << s)
+    log_d = dilate.bit_length() - 1
+    if dilate > 1:
+        assert residue is not None and count % dilate == 0
     tail = params.log_n - s
     if bounded_support and count << s <= n:
         tail = 0
@@ -197,7 +211,27 @@ def extract_slots(params: Params, ctx: NTTContext, ct, count: int,
         shift -= step
     nodes = limb_ops.normalize(x)[..., None, :, :, :]
     gals = params.trace_gal_els
+
+    def select(nodes):
+        # the caller's subtree: node index == low log_d bits of m
+        dim = nodes.dim() - 4
+        if torch.is_tensor(residue):
+            return nodes.index_select(dim, residue.reshape(1).to(torch.long))
+        return nodes.narrow(dim, int(residue), 1)
+
+    if tree and dilate == 1 and s >= 1 and (1 << s) <= _SPLIT_TREE_MAX:
+        keys = torch.stack([kernel_key_rows(auto_keys_ntt[gals[l]])
+                            for l in range(s)], dim=0)  # [s, P, T, M, N]
+        lead = nodes.shape[:-4]
+        flat = nodes[..., 0, :, :, :].reshape((-1,) + nodes.shape[-3:])
+        leaves = ntt_cuda.fused_split_tree(ctx, flat, tuple(gals[:s]), keys)
+        leaves = leaves.reshape(lead + leaves.shape[1:])
+        out = trace_steps(params, ctx, leaves, auto_keys_ntt, gals[s: s + tail])
+        return out[..., :count, :, :, :]
+
     for l in range(s):
+        if dilate > 1 and l == log_d:
+            nodes = select(nodes)
         # level l: A = KS(sigma_g x); child0 = x + A (the 1 + sigma_g
         # branch); child1 = X^-t x + KS(sigma_g(X^-t x)) = X^-t (x - A),
         # since sigma_g(X^-t) = -X^-t for t = 2^l, g = N/2^l + 1
@@ -208,5 +242,7 @@ def extract_slots(params: Params, ctx: NTTContext, ct, count: int,
                                       kernel_key_rows(auto_keys_ntt[g]))
         nodes = torch.cat([c0.reshape(lead + c0.shape[1:]),
                            c1.reshape(lead + c1.shape[1:])], dim=-4)
+    if dilate > 1 and log_d == s:
+        nodes = select(nodes)
     out = trace_steps(params, ctx, nodes, auto_keys_ntt, gals[s: s + tail])
-    return out[..., :count, :, :, :]
+    return out[..., : count // dilate, :, :, :]

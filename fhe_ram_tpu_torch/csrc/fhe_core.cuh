@@ -18,6 +18,7 @@
 // plain PyTorch versions (int64 `%`) and these kernels agree bit for bit.
 #pragma once
 #include <cooperative_groups.h>
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -166,15 +167,58 @@ __device__ __forceinline__ int rot_at(const int* __restrict__ poly, int j,
   return k >= n ? -v : v;
 }
 
-// Barrier over the blocks that share a row: the block itself, or its
-// thread block cluster (arrive.release / wait.acquire at cluster scope, so
-// what one block wrote to device memory the others may read afterwards).
-__device__ __forceinline__ void row_sync(int cs) {
-  if (cs > 1)
-    cooperative_groups::this_cluster().sync();
-  else
+// The blocks that share a row, as the row functions below see them: how
+// many (cs), which of them this block is (rank), and a barrier over them
+// after which what one block wrote to device memory the others may read
+// (through L2: __ldcg).  Two kinds:
+//
+// ClusterRow: the block itself (cs = 1), or its thread block cluster
+// (arrive.release / wait.acquire at cluster scope).  The per-level kernels.
+struct ClusterRow {
+  int cs;
+  __device__ __forceinline__ explicit ClusterRow(int cs_) : cs(cs_) {}
+  __device__ __forceinline__ int rank() const {
+    return cs > 1 ? (int)cooperative_groups::this_cluster().block_rank() : 0;
+  }
+  __device__ __forceinline__ void sync() {
+    if (cs > 1)
+      cooperative_groups::this_cluster().sync();
+    else
+      __syncthreads();
+  }
+};
+
+// GridRow: cs consecutive blocks of a cooperative launch (all blocks of the
+// grid are resident, so a block may wait for another).  The one-launch tree
+// kernels, whose levels differ in rows and so in cs, which a cluster
+// dimension fixed at launch cannot follow.  The barrier is a counter in
+// device memory, zero at launch and used by this group alone: every block
+// adds one and waits until cs more have arrived than at the last barrier.
+// Thread 0 spins without a back-off: a __nanosleep(40) in the loop moved no
+// tree time on an H100 (two alternating builds, both trees, 4 and 64 columns).
+struct GridRow {
+  int cs, rank_;
+  unsigned* arrived;
+  unsigned target;
+  __device__ __forceinline__ GridRow(int cs_, int rank, unsigned* counter)
+      : cs(cs_), rank_(rank), arrived(counter), target(0) {}
+  __device__ __forceinline__ int rank() const { return rank_; }
+  __device__ __forceinline__ void sync() {
     __syncthreads();
-}
+    if (cs > 1) {
+      target += cs;
+      if (threadIdx.x == 0) {
+        // release: this block's stores (ordered before by the barrier above)
+        // are visible to whoever acquires the count afterwards
+        cuda::atomic_ref<unsigned, cuda::thread_scope_device> count(*arrived);
+        count.fetch_add(1u, cuda::memory_order_release);
+        while (count.load(cuda::memory_order_acquire) < target) {
+        }
+      }
+      __syncthreads();
+    }
+  }
+};
 
 // What a Glue whose digits are coefficients says of spectral input.
 struct CoefficientDigits {
@@ -222,8 +266,9 @@ struct TraceStepGlue : CoefficientDigits {
 // Glue.  With spectral() the forward transform is skipped: spectrum() is
 // reduced to its canonical residue on load.
 //
-// A row is the work of sh.cs blocks.  cs = 1: one block loops over the
-// three primes.  cs = 3 * k: a thread block cluster; block `rank` takes
+// A row is the work of the row.cs blocks of `row` (ClusterRow or GridRow
+// above; sh.cs is not read here).  cs = 1: one block loops over the
+// three primes.  cs = 3 * k: a group of blocks; block `rank` takes
 // prime rank % 3 and the (rank / 3)-th of k equal ranges of output polys
 // (each block transforms the T digit polys of its prime itself), and the
 // last phase is split over the coefficients.  A single row on one SM is
@@ -239,8 +284,8 @@ struct TraceStepGlue : CoefficientDigits {
 // them when cs = 1, through L2 by any block of the cluster otherwise).
 // keys: uint32[.., T, M, n] of one digit/step; prime p starts at
 // keys + p * key_pstride.
-template <class Glue>
-__device__ __forceinline__ void fold_row(const Glue& glue,
+template <class Row, class Glue>
+__device__ __forceinline__ void fold_row(Row& row, const Glue& glue,
                                          const uint32_t* __restrict__ keys,
                                          long long key_pstride,
                                          const FoldShape sh, const FheConsts& c,
@@ -253,13 +298,13 @@ __device__ __forceinline__ void fold_row(const Glue& glue,
   uint32_t* spec = smem;
   uint32_t* acc = smem + T * n;
 
-  const int cs = sh.cs;
-  const int rank = cs > 1 ? (int)cooperative_groups::this_cluster().block_rank() : 0;
+  const int cs = row.cs;
+  const int rank = row.rank();
   const int ps = cs > 1 ? FHE_P : 1;       // blocks the primes are dealt to
   const int m_per = M / (cs / ps);         // output polys of this block
   const int m_lo = (rank / ps) * m_per, m_hi = m_lo + m_per;
 
-  row_sync(cs);  // a previous row fold may still read scratch / write `out`
+  row.sync();  // a previous row fold may still read scratch / write `out`
   for (int pi = rank % ps; pi < FHE_P; pi += ps) {
     const uint32_t p = c.p[pi];
     const uint32_t mu40 = c.mu40[pi];
@@ -300,7 +345,7 @@ __device__ __forceinline__ void fold_row(const Glue& glue,
     }
     __syncthreads();  // spectra are overwritten by the next prime
   }
-  row_sync(cs);  // all residues of the row are in scratch
+  row.sync();  // all residues of the row are in scratch
 
   // Garner + digit split + limb fold + normalize, over this block's share
   // of the coefficients.  Residues are read through L2 (__ldcg): another
@@ -354,6 +399,125 @@ __device__ __forceinline__ void fold_row(const Glue& glue,
   }
 }
 
+// A load of ciphertext data: through L2 where another block of this launch
+// may have written it (the tree kernels' levels), else as the compiler likes.
+template <bool kThroughL2>
+__device__ __forceinline__ int ct_load(const int* p) {
+  return kThroughL2 ? __ldcg(p) : *p;
+}
+
+// Glue of one pack-tree merge on a row pair: with u, v = A +- X^t B the
+// digits are sigma_g(v)[mask, l < Td] and the base u + sigma_g(v) at the b
+// component, so that fold_row with sign -1 gives normalize(u + KS(sigma_g(v))).
+// X^t and sigma_g are index arithmetic on the loads: u, v and sigma_g(v) are
+// never written anywhere.
+template <bool kThroughL2>
+struct MergeGlue : CoefficientDigits {
+  const int* A;  // [C2, L, n] of this pair
+  const int* B;
+  int n, L, Td, rank, ginv, t_rot;
+  // (X^t_rot * B)[c, l][j]
+  __device__ __forceinline__ int xb(int c, int l, int j) const {
+    const int* poly = B + (c * L + l) * n;
+    const int kk = t_rot & (n - 1);
+    const int v = j < kk ? -ct_load<kThroughL2>(poly + n - kk + j)
+                         : ct_load<kThroughL2>(poly + j - kk);
+    return t_rot >= n ? -v : v;
+  }
+  __device__ __forceinline__ int sigma_v(int c, int l, int i) const {
+    bool neg;
+    const int src = sigma_src(i, ginv, n, neg);
+    const int v = ct_load<kThroughL2>(A + (c * L + l) * n + src) - xb(c, l, src);
+    return neg ? -v : v;
+  }
+  __device__ __forceinline__ int digit(int t, int i) const {
+    return sigma_v(t / Td, t % Td, i);
+  }
+  __device__ __forceinline__ int base(int c2, int l, int i) const {
+    int b = ct_load<kThroughL2>(A + (c2 * L + l) * n + i) + xb(c2, l, i);
+    if (c2 == rank) b += sigma_v(rank, l, i);
+    return b;
+  }
+};
+
+// One merge of the pack tree on the row pair (A, B), each [C2, L, n]:
+// out = normalize(u + KS(sigma_g(v))), u/v = A +- X^t_rot B.  t_rot in
+// [0, 2n); ginv = g^-1 mod 2n; key: uint32[P, T, M, n] with T = rank * Td.
+template <bool kThroughL2, class Row>
+__device__ __forceinline__ void merge_row(Row& row, const int* A, const int* B,
+                                          int* out, const uint32_t* key,
+                                          int t_rot, int ginv, int Td,
+                                          const FoldShape sh, const FheConsts& c,
+                                          const FheTables& tb, uint32_t* scratch,
+                                          uint32_t* smem) {
+  MergeGlue<kThroughL2> glue;
+  glue.A = A;
+  glue.B = B;
+  glue.n = 1 << c.log_n;
+  glue.L = sh.Lout;
+  glue.Td = Td;
+  glue.rank = sh.C2 - 1;
+  glue.ginv = ginv;
+  glue.t_rot = t_rot;
+  fold_row(row, glue, key, (long long)sh.T * sh.M << c.log_n, sh, c, tb, scratch,
+           out, smem);
+}
+
+// One split of the slot-extraction tree on the row x [C2, L, n]:
+//   c0 = normalize(x + KS(sigma_g(x)))       (one trace step)
+//   c1 = normalize(X^t_back (2x - c0))       (t_back = 2n - t: X^-t)
+// c1 reads c0 at rotated positions, which another block of the row's group
+// may have written: a barrier after the fold, then reads through L2.  The
+// rotation is index arithmetic with a sign flip on the wrap; 2x - c0 is at
+// most 3 * 2^16 in magnitude and is carried into balanced limbs coefficient
+// by coefficient, the coefficients dealt over the blocks of the group as in
+// the fold's last phase.  x, c0 and c1 must not overlap.  key: uint32[P, T,
+// M, n] with T = rank * L.
+template <class Row>
+__device__ __forceinline__ void split_row(Row& row, const int* x, int* c0,
+                                          int* c1, const uint32_t* key,
+                                          int t_back, int ginv,
+                                          const FoldShape sh, const FheConsts& c,
+                                          const FheTables& tb, uint32_t* scratch,
+                                          uint32_t* smem) {
+  const int n = 1 << c.log_n;
+  const int L = sh.Lout;
+  TraceStepGlue glue;
+  glue.ct = x;
+  glue.n = n;
+  glue.L = L;
+  glue.Td = L;
+  glue.rank = sh.C2 - 1;
+  glue.ginv = ginv;
+  fold_row(row, glue, key, (long long)sh.T * sh.M * n, sh, c, tb, scratch, c0,
+           smem);
+  row.sync();  // c0 is complete, whichever block wrote it
+
+  const int cs = row.cs;
+  const int rank = row.rank();
+  const int i_per = (n + cs - 1) / cs;
+  const int i_hi = min(n, (rank + 1) * i_per);
+  const int kk = t_back & (n - 1);
+  for (int i = rank * i_per + threadIdx.x; i < i_hi; i += blockDim.x) {
+    // (X^t_back * d)[i] = +-d[src]
+    const bool wrap = i < kk;
+    const int src = wrap ? n - kk + i : i - kk;
+    const bool neg = wrap != (t_back >= n);
+    for (int c2 = 0; c2 < sh.C2; ++c2) {
+      int carry = 0;
+      for (int l = L - 1; l >= 0; --l) {
+        const int at = (c2 * L + l) * n + src;
+        int v = 2 * __ldcg(x + at) - __ldcg(c0 + at);
+        if (neg) v = -v;
+        v += carry;
+        const int d = ((v + 65536) & 131071) - 65536;
+        carry = (v - d) >> 17;
+        c1[(c2 * L + l) * n + i] = d;
+      }
+    }
+  }
+}
+
 // Launch `kernel` with `rows` groups of sh.cs blocks (one group a row, or
 // fewer groups that each walk over several rows); a group of more than one
 // block is a thread block cluster.
@@ -375,6 +539,63 @@ static inline int fold_launch(void (*kernel)(KArgs...), int rows,
   attr[0].val.clusterDim.x = sh.cs;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, KArgs(args)...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ---- the one-launch tree kernels ------------------------------------------
+// A tree kernel walks all levels of a split or pack tree in one cooperative
+// launch: every block of the grid is resident, each level's rows are dealt
+// over groups of blocks (GridRow), and a grid-wide barrier separates the
+// levels.  What a level needs beside its key:
+struct TreeLevels {
+  int count;
+  int cs[FHE_MAX_STEPS];    // blocks that share a row at this level
+  int ginv[FHE_MAX_STEPS];  // g^-1 mod 2n of the level's galois element
+  int rot[FHE_MAX_STEPS];   // the level's rotation X^rot, rot in [0, 2n)
+};
+
+static inline size_t tree_smem(const FoldShape& sh, int log_n) {
+  return (size_t)(sh.T + sh.mc) * sizeof(uint32_t) << log_n;
+}
+
+// The most blocks of `kernel` the current device holds at once with this
+// much dynamic shared memory: the largest grid a cooperative launch takes.
+template <class... KArgs>
+static inline int tree_blocks(void (*kernel)(KArgs...), size_t smem,
+                              int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      FHE_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = per_sm * sms;
+  return 0;
+}
+
+// Cooperative launch of `kernel` with `blocks` blocks (<= tree_blocks).
+template <class... KArgs, class... Args>
+static inline int tree_launch(void (*kernel)(KArgs...), int blocks, size_t smem,
+                              void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(FHE_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, KArgs(args)...);

@@ -66,6 +66,7 @@ fold_kernel(const int* __restrict__ x, const uint32_t* __restrict__ keys,
   uint32_t* scratch_row = scratch + (long long)group * FHE_P * sh.M * n;
   const long long dstride = (long long)sh.T * sh.M * n;
   const long long astride = FHE_P * digits * dstride;
+  ClusterRow row(sh.cs);
   for (long long r = group; r < rows; r += groups) {
     const long long a = r / B, b = r % B;
     int* out_row = out + r * row_polys * n;
@@ -79,7 +80,7 @@ fold_kernel(const int* __restrict__ x, const uint32_t* __restrict__ keys,
       glue.base_ptr = base ? base + r * row_polys * n : nullptr;
       glue.n = n;
       glue.Lout = sh.Lout;
-      fold_row(glue, keys + a * astride + d * dstride, digits * dstride, sh, c,
+      fold_row(row, glue, keys + a * astride + d * dstride, digits * dstride, sh, c,
                tb, scratch_row, out_row, smem);
     }
   }

@@ -12,31 +12,9 @@
 // arithmetic on the loads (rot_at, sigma_src), so u, v and sigma_g(v) are
 // never written anywhere: the digit polys sigma_g(v)[mask, l < Td] are
 // formed as they are lifted into shared memory, and the base
-// u + sigma_g(v) at the b component as the fold's last phase reads it.
+// u + sigma_g(v) at the b component as the fold's last phase reads it
+// (MergeGlue and merge_row in fhe_core.cuh, shared with pack_tree.cu).
 #include "fhe_core.cuh"
-
-struct MergeGlue : CoefficientDigits {
-  const int* A;  // [C2, L, n] of this pair
-  const int* B;
-  int n, L, Td, rank, ginv, t_rot;
-  __device__ __forceinline__ int xb(int c, int l, int j) const {
-    return rot_at(B + (c * L + l) * n, j, t_rot, n);
-  }
-  __device__ __forceinline__ int sigma_v(int c, int l, int i) const {
-    bool neg;
-    const int src = sigma_src(i, ginv, n, neg);
-    const int v = A[(c * L + l) * n + src] - xb(c, l, src);
-    return neg ? -v : v;
-  }
-  __device__ __forceinline__ int digit(int t, int i) const {
-    return sigma_v(t / Td, t % Td, i);
-  }
-  __device__ __forceinline__ int base(int c2, int l, int i) const {
-    int b = A[(c2 * L + l) * n + i] + xb(c2, l, i);
-    if (c2 == rank) b += sigma_v(rank, l, i);
-    return b;
-  }
-};
 
 // A, B, out: int32[nb, C2, L, n]; key: uint32[P, T, M, n]; scratch:
 // uint32[nb, P, M, n].  t_rot in [0, 2n); ginv = g^-1 mod 2n.
@@ -49,17 +27,9 @@ pack_merge_kernel(const int* __restrict__ A, const int* __restrict__ B,
   const int n = 1 << c.log_n;
   const long long b = blockIdx.x / sh.cs;
   const long long row = b * sh.C2 * sh.Lout * n;
-  MergeGlue glue;
-  glue.A = A + row;
-  glue.B = B + row;
-  glue.n = n;
-  glue.L = sh.Lout;
-  glue.Td = Td;
-  glue.rank = sh.C2 - 1;
-  glue.ginv = ginv;
-  glue.t_rot = t_rot;
-  fold_row(glue, key, (long long)sh.T * sh.M * n, sh, c, tb,
-           scratch + b * FHE_P * sh.M * n, out + row, smem);
+  ClusterRow blocks(sh.cs);
+  merge_row<false>(blocks, A + row, B + row, out + row, key, t_rot, ginv, Td, sh,
+                   c, tb, scratch + b * FHE_P * sh.M * n, smem);
 }
 
 extern "C" int fhe_pack_merge(const void* A, const void* B, const void* key,

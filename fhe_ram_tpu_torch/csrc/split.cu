@@ -18,7 +18,8 @@
 // through L2.  The rotation X^-t is index arithmetic with a sign flip on
 // the wrap; 2x - child0 is at most 3 * 2^16 in magnitude and is carried
 // into balanced limbs coefficient by coefficient, the coefficients dealt
-// over the blocks of the cluster as in the fold's last phase.
+// over the blocks of the cluster as in the fold's last phase (split_row in
+// fhe_core.cuh, shared with split_tree.cu).
 #include "fhe_core.cuh"
 
 // ct, out0, out1: int32[nb, C2, L, n]; key: uint32[P, T, M, n] with
@@ -30,46 +31,11 @@ split_kernel(const int* __restrict__ ct, const uint32_t* __restrict__ key,
              int ginv, FoldShape sh, FheConsts c, FheTables tb) {
   extern __shared__ uint32_t smem[];
   const int n = 1 << c.log_n;
-  const int L = sh.Lout;
   const long long b = blockIdx.x / sh.cs;
-  const long long row = b * sh.C2 * L * n;
-  const int* x = ct + row;
-  int* c0 = out0 + row;
-  int* c1 = out1 + row;
-  TraceStepGlue glue;
-  glue.ct = x;
-  glue.n = n;
-  glue.L = L;
-  glue.Td = L;
-  glue.rank = sh.C2 - 1;
-  glue.ginv = ginv;
-  fold_row(glue, key, (long long)sh.T * sh.M * n, sh, c, tb,
-           scratch + b * FHE_P * sh.M * n, c0, smem);
-  row_sync(sh.cs);  // child0 is complete, whichever block wrote it
-
-  const int cs = sh.cs;
-  const int rank = cs > 1 ? (int)cooperative_groups::this_cluster().block_rank() : 0;
-  const int i_per = (n + cs - 1) / cs;
-  const int i_hi = min(n, (rank + 1) * i_per);
-  const int kk = t_back & (n - 1);
-  for (int i = rank * i_per + threadIdx.x; i < i_hi; i += blockDim.x) {
-    // (X^t_back * d)[i] = +-d[src]
-    const bool wrap = i < kk;
-    const int src = wrap ? n - kk + i : i - kk;
-    const bool neg = wrap != (t_back >= n);
-    for (int c2 = 0; c2 < sh.C2; ++c2) {
-      int carry = 0;
-      for (int l = L - 1; l >= 0; --l) {
-        const int at = (c2 * L + l) * n + src;
-        int v = 2 * x[at] - __ldcg(c0 + at);
-        if (neg) v = -v;
-        v += carry;
-        const int d = ((v + 65536) & 131071) - 65536;
-        carry = (v - d) >> 17;
-        c1[(c2 * L + l) * n + i] = d;
-      }
-    }
-  }
+  const long long row = b * sh.C2 * sh.Lout * n;
+  ClusterRow blocks(sh.cs);
+  split_row(blocks, ct + row, out0 + row, out1 + row, key, t_back, ginv, sh, c,
+            tb, scratch + b * FHE_P * sh.M * n, smem);
 }
 
 extern "C" int fhe_split(const void* ct, const void* key, void* out0,

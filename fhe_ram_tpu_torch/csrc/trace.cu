@@ -39,6 +39,7 @@ trace_kernel(const int* __restrict__ ct, const uint32_t* __restrict__ keys,
   const long long pstride = (long long)sh.T * sh.M * n;
   const int S = steps.count;
   const int* cur = ct + row;
+  ClusterRow blocks(sh.cs);
   for (int s = 0; s < S; ++s) {
     int* nxt = ((S - 1 - s) & 1) ? tmp + row : out + row;
     TraceStepGlue glue;
@@ -48,7 +49,7 @@ trace_kernel(const int* __restrict__ ct, const uint32_t* __restrict__ keys,
     glue.Td = Td;
     glue.rank = sh.C2 - 1;
     glue.ginv = steps.ginv[s];
-    fold_row(glue, keys + (long long)s * FHE_P * pstride, pstride, sh, c, tb,
+    fold_row(blocks, glue, keys + (long long)s * FHE_P * pstride, pstride, sh, c, tb,
              scratch_row, nxt, smem);
     cur = nxt;
   }

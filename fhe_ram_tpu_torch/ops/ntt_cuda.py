@@ -2,7 +2,7 @@
 their wrappers, their launch counters, and beside each its plain PyTorch
 version.
 
-Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Six kernels (csrc/):
+Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Eight kernels (csrc/):
 
   ntt_fwd_cuda / ntt_inv_cuda   the batched negacyclic NTT     (ntt.cu)
   fused_external_fold           external product / keyswitch   (fold.cu)
@@ -10,6 +10,8 @@ Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Six kernels (csrc/):
   fused_trace                   the whole trace chain          (trace.cu)
   fused_pack_merge              one pack-tree merge level      (pack_merge.cu)
   fused_split                   one split-tree level           (split.cu)
+  fused_split_tree              all split-tree levels          (split_tree.cu)
+  fused_pack_tree               a whole pack tree              (pack_tree.cu)
 
 Build: one `nvcc -shared` per source for sm_90a, all started together,
 into `<package>/build/` at first use; plain C entry points bound with
@@ -47,10 +49,11 @@ from .ntt import NTTContext, ntt_fwd_plain, ntt_inv_plain
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
-SOURCES = ("ntt", "fold", "trace", "pack_merge", "split")
+SOURCES = ("ntt", "fold", "trace", "pack_merge", "split", "split_tree",
+           "pack_tree")
 
 _MAX_L = 8        # FHE_MAX_L of csrc/fhe_core.cuh
-_MAX_STEPS = 16   # FHE_MAX_STEPS
+_MAX_STEPS = 16   # FHE_MAX_STEPS: steps of a trace launch, levels of a tree launch
 _MAX_SMEM = 232448  # bytes of shared memory one block can use on sm_90
 # Rows up to which a launch gives each row a cluster of 6 resp. 3 blocks
 # (timed on an H100 with tools/time_fold_chunks.py: at T = 2, M = 6 a
@@ -66,7 +69,8 @@ _MAX_ROW_GROUPS = 1024
 # incremented where the wrapper launches its kernel and nowhere else.
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "fused_external_fold": 0,
             "fused_external_fold_batched": 0, "fused_trace": 0,
-            "fused_pack_merge": 0, "fused_split": 0}
+            "fused_pack_merge": 0, "fused_split": 0, "fused_split_tree": 0,
+            "fused_pack_tree": 0}
 
 _force_plain = False
 _libs = None
@@ -116,6 +120,12 @@ class _TraceSteps(ctypes.Structure):
     _fields_ = [("count", ctypes.c_int), ("ginv", ctypes.c_int * _MAX_STEPS)]
 
 
+class _TreeLevels(ctypes.Structure):
+    _fields_ = [("count", ctypes.c_int), ("cs", ctypes.c_int * _MAX_STEPS),
+                ("ginv", ctypes.c_int * _MAX_STEPS),
+                ("rot", ctypes.c_int * _MAX_STEPS)]
+
+
 def _find_nvcc() -> str:
     for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
                  "/usr/local/cuda"):
@@ -155,7 +165,7 @@ def build_kernels(verbose: bool = False):
             print(log)
         os.replace(tmp, so)
 
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     libs = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
     sigs = {
         ("ntt", "fhe_ntt_fwd"): [vp, vp, ci, _Consts, _Tables, vp],
@@ -168,6 +178,14 @@ def build_kernels(verbose: bool = False):
                                            _FoldShape, _Consts, _Tables, vp],
         ("split", "fhe_split"): [vp, vp, vp, vp, vp, ci, ci, ci, _FoldShape,
                                  _Consts, _Tables, vp],
+        ("split_tree", "fhe_split_tree_blocks"): [_FoldShape, ci, cip],
+        ("split_tree", "fhe_split_tree"): [vp, vp, vp, vp, vp, vp, ci, ci,
+                                           _TreeLevels, _FoldShape, _Consts,
+                                           _Tables, vp],
+        ("pack_tree", "fhe_pack_tree_blocks"): [_FoldShape, ci, cip],
+        ("pack_tree", "fhe_pack_tree"): [vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                         _TreeLevels, _FoldShape, _Consts,
+                                         _Tables, vp],
     }
     for (lib, fn), argtypes in sigs.items():
         f = getattr(libs[lib], fn)
@@ -265,6 +283,14 @@ def _fold_limits(T: int, M: int, c2: int, out_limbs: int, n: int):
 SHAPE_OVERRIDE = None
 
 
+def _row_blocks(rows: int, M: int) -> int:
+    """Blocks that share one row in a launch (or a tree level) of `rows`
+    rows: 6, 3 or 1 (see _fold_shape)."""
+    if rows <= _ROWS_CLUSTER_6 and M % 2 == 0:
+        return 6
+    return 3 if rows <= _ROWS_CLUSTER_3 else 1
+
+
 def _fold_shape(rows: int, T: int, M: int, c2: int, out_limbs: int, sign: int,
                 n: int) -> _FoldShape:
     """The kernels' shape argument, with the two launch choices:
@@ -276,12 +302,7 @@ def _fold_shape(rows: int, T: int, M: int, c2: int, out_limbs: int, sign: int,
         row does the least redundant work.
     mc  output polys that share one inverse-transform pass; shared memory
         is (T + mc) polys a block."""
-    if rows <= _ROWS_CLUSTER_6 and M % 2 == 0:
-        cs = 6
-    elif rows <= _ROWS_CLUSTER_3:
-        cs = 3
-    else:
-        cs = 1
+    cs = _row_blocks(rows, M)
     mc = 3
     if SHAPE_OVERRIDE is not None:
         mc, cs = SHAPE_OVERRIDE
@@ -656,3 +677,165 @@ def fused_split(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
     _check(err, "fused_split")
     LAUNCHES["fused_split"] += 1
     return out0, out1
+
+
+# --------------------------------------------------------------------------
+# kernels 7 and 8: the one-launch split tree and pack tree
+# --------------------------------------------------------------------------
+
+_resident = {}   # (source, T, mc, log_n, device index) -> co-resident blocks
+
+
+def _tree_launch_args(source: str, level_rows, gal_els, rots, T: int, M: int,
+                      C2: int, L: int, n: int, device):
+    """What a tree launch needs beside its tensors: the kernels' shape
+    argument (one for the whole launch: shared memory and `mc` cannot
+    change between levels), the per-level table (blocks that share a row,
+    chosen by the level's rows as `_fold_shape` chooses them for a
+    per-level launch; g^-1; the rotation), and the grid: as many blocks as
+    the widest level can use, at most what the card holds at once (a
+    cooperative launch takes no more)."""
+    mc = max(1, min(3, M, _MAX_SMEM // (4 * n) - T))
+    sh = _FoldShape(T, M, M // C2, L, C2, -1, mc, 1)
+    log_n = n.bit_length() - 1
+    key = (source, T, mc, log_n, torch.device(device).index)
+    if key not in _resident:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = getattr(_lib(source), f"fhe_{source}_blocks")(
+                sh, log_n, ctypes.byref(blocks))
+        _check(err, f"the occupancy query of {source}")
+        if blocks.value < 6:
+            raise RuntimeError(f"{source}: the device holds {blocks.value} "
+                               "blocks at once, 6 are needed")
+        _resident[key] = blocks.value
+    lv = _TreeLevels()
+    lv.count = len(level_rows)
+    want = 0
+    for l, rows in enumerate(level_rows):
+        lv.cs[l] = _row_blocks(rows, M)
+        lv.ginv[l] = poly.auto_inverse(n, gal_els[l])
+        lv.rot[l] = rots[l] % (2 * n)
+        want = max(want, rows * lv.cs[l])
+    return sh, lv, min(want, _resident[key])
+
+
+def fused_split_tree_plain(ctx: NTTContext, ct, gal_els, keys_stacked):
+    """Plain version of `fused_split_tree`: a loop of `fused_split_plain`
+    over the levels, children kept in the concat layout."""
+    nb = ct.shape[0]
+    nodes = ct[:, None]                               # [nb, 1, C2, L, N]
+    for l, g in enumerate(gal_els):
+        flat = nodes.reshape((-1,) + tuple(ct.shape[1:]))
+        c0, c1 = fused_split_plain(ctx, flat, 1 << l, g, keys_stacked[l])
+        nodes = torch.cat([c0.reshape((nb, -1) + tuple(ct.shape[1:])),
+                           c1.reshape((nb, -1) + tuple(ct.shape[1:]))], dim=1)
+    return nodes
+
+
+def fused_split_tree(ctx: NTTContext, ct, gal_els, keys_stacked):
+    """All S levels of the slot-extraction split tree in ONE launch.
+
+    ct: int32[nb, C2, L, N] pre-scaled normalized roots; gal_els: the S
+    per-level galois elements (level l pairs slots that differ in bit l:
+    g_l = N/2^l + 1, back-rotation X^-2^l); keys_stacked: int32[S, P, T,
+    M, N] prepared automorphism keys in level order, T = rank*L (the full
+    gadget), M = C2*Lk.  Returns int32[nb, 2^S, C2, L, N]: node j of root
+    b is the leaf for slot j, the same integers as S `fused_split`
+    launches whose children are concatenated [child0s | child1s]."""
+    nb, C2, L, n = ct.shape
+    S, P, T, M, n3 = keys_stacked.shape
+    rank = C2 - 1
+    if n != ctx.n or n3 != n or T != rank * L or M % C2 or P != len(ctx.primes):
+        raise ValueError(f"ct {tuple(ct.shape)} does not fit keys {tuple(keys_stacked.shape)}")
+    if S != len(gal_els) or not 1 <= S <= _MAX_STEPS:
+        raise ValueError(f"{S} levels: one launch walks 1..{_MAX_STEPS}")
+    if keys_stacked.device != ct.device:
+        raise ValueError(f"keys_stacked lies on {keys_stacked.device}, ct on {ct.device}")
+    _fold_limits(T, M, C2, L, n)
+    if not _use_kernel(ctx, ct):
+        return fused_split_tree_plain(ctx, ct, gal_els, keys_stacked)
+    ct = _require(ct, "ct")
+    keys_stacked = _require(keys_stacked, "keys_stacked")
+    out = torch.empty((nb, 1 << S, C2, L, n), dtype=I32, device=ct.device)
+    if nb == 0:
+        return out
+    sh, lv, blocks = _tree_launch_args(
+        "split_tree", [nb << l for l in range(S)], gal_els,
+        [-(1 << l) for l in range(S)], T, M, C2, L, n, ct.device)
+    tmp = torch.empty((nb, 1 << (S - 1), C2, L, n), dtype=I32, device=ct.device)
+    scratch = torch.empty((blocks, P, M, n), dtype=I32, device=ct.device)
+    arrived = torch.zeros((S, blocks), dtype=I32, device=ct.device)
+    with torch.cuda.device(ct.device):
+        err = _lib("split_tree").fhe_split_tree(
+            ct.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(),
+            tmp.data_ptr(), scratch.data_ptr(), arrived.data_ptr(), nb, blocks,
+            lv, sh, _consts(ctx), _tables(ctx, ct.device), _stream())
+    _check(err, "fused_split_tree")
+    LAUNCHES["fused_split_tree"] += 1
+    return out
+
+
+def fused_pack_tree_plain(ctx: NTTContext, cts, keys_stacked):
+    """Plain version of `fused_pack_tree`: a loop of
+    `fused_pack_merge_plain` over the levels."""
+    M, nb = cts.shape[0], cts.shape[1]
+    n = cts.shape[-1]
+    levels = M.bit_length() - 1
+    for s in range(levels):
+        l = levels - 1 - s
+        R = M >> (s + 1)
+        merged = fused_pack_merge_plain(
+            ctx, cts[:R].reshape((-1,) + tuple(cts.shape[2:])),
+            cts[R: 2 * R].reshape((-1,) + tuple(cts.shape[2:])),
+            1 << l, (n >> l) + 1, keys_stacked[s])
+        cts = merged.reshape((R, nb) + tuple(cts.shape[2:]))
+    return cts[0]
+
+
+def fused_pack_tree(ctx: NTTContext, cts, keys_stacked):
+    """A whole log-depth pack tree in ONE launch.
+
+    cts: int32[M, nb, C2, L, N] leaves, M a power of two >= 2, pre-scaled
+    by 1/M and not necessarily normalized (limbs up to 2^17 in magnitude);
+    keys_stacked: int32[levels, P, T, Mk, N] prepared automorphism keys in
+    MERGE order (level s uses g = N/2^(levels-1-s) + 1 and the rotation
+    X^(2^(levels-1-s))), T = rank*L (the full gadget), Mk = C2*Lk.
+    Returns int32[nb, C2, L, N], the same integers as log2(M)
+    `fused_pack_merge` launches."""
+    M, nb, C2, L, n = cts.shape
+    levels, P, T, Mk, n3 = keys_stacked.shape
+    rank = C2 - 1
+    if M < 2 or M & (M - 1) or levels != M.bit_length() - 1:
+        raise ValueError(f"{M} leaves against {levels} levels of keys")
+    if n != ctx.n or n3 != n or T != rank * L or Mk % C2 or P != len(ctx.primes):
+        raise ValueError(f"cts {tuple(cts.shape)} do not fit keys {tuple(keys_stacked.shape)}")
+    if levels > min(_MAX_STEPS, ctx.log_n):
+        raise ValueError(f"{levels} levels: one launch walks 1..{min(_MAX_STEPS, ctx.log_n)}")
+    if keys_stacked.device != cts.device:
+        raise ValueError(f"keys_stacked lies on {keys_stacked.device}, cts on {cts.device}")
+    _fold_limits(T, Mk, C2, L, n)
+    if not _use_kernel(ctx, cts):
+        return fused_pack_tree_plain(ctx, cts, keys_stacked)
+    cts = _require(cts, "cts")
+    keys_stacked = _require(keys_stacked, "keys_stacked")
+    out = torch.empty((nb, C2, L, n), dtype=I32, device=cts.device)
+    if nb == 0:
+        return out
+    ls = [levels - 1 - s for s in range(levels)]
+    sh, lv, blocks = _tree_launch_args(
+        "pack_tree", [(M >> (s + 1)) * nb for s in range(levels)],
+        [(n >> l) + 1 for l in ls], [1 << l for l in ls], T, Mk, C2, L, n,
+        cts.device)
+    tmp = torch.empty((max(1, M // 2 + M // 4), nb, C2, L, n), dtype=I32,
+                      device=cts.device)
+    scratch = torch.empty((blocks, P, Mk, n), dtype=I32, device=cts.device)
+    arrived = torch.zeros((levels, blocks), dtype=I32, device=cts.device)
+    with torch.cuda.device(cts.device):
+        err = _lib("pack_tree").fhe_pack_tree(
+            cts.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(),
+            tmp.data_ptr(), scratch.data_ptr(), arrived.data_ptr(), M, nb,
+            blocks, lv, sh, _consts(ctx), _tables(ctx, cts.device), _stream())
+    _check(err, "fused_pack_tree")
+    LAUNCHES["fused_pack_tree"] += 1
+    return out

@@ -1,5 +1,5 @@
-"""The FHE-RAM engine: encrypted read / read_prepare_write / write, and
-the batched read.
+"""The FHE-RAM engine: encrypted read / read_prepare_write / write, the
+batched read and the batched read-modify-write.
 
   * all WORDSIZE subrams are batched into one leading axis;
   * per-row CMux external products are batched over the row axis;
@@ -78,29 +78,34 @@ def encrypt_write_word(params: Params, ctx: NTTContext, s_ntt, word_bytes,
 # server side: read, batched read, read_prepare_write, write
 # --------------------------------------------------------------------------
 
+def _pack_leaves(rows):
+    """One chunk's rows [W, Rc, C, L, N] as pack leaves [M, W, C, L, N],
+    padded with zero ciphertexts to a power of two."""
+    W, Rc = rows.shape[0], rows.shape[1]
+    M = 1 << (Rc - 1).bit_length() if Rc > 1 else 1
+    if M != Rc:
+        pad = rows.new_zeros((W, M - Rc) + tuple(rows.shape[2:]))
+        rows = torch.cat([rows, pad], dim=1)
+    return rows.movedim(1, 0)
+
+
 def _pack_rows(params: Params, ctx: NTTContext, cur, atk,
-               trunc: tuple = (None, None)):
+               trunc: tuple = (None, None), tree: bool = False):
     """Pack each N-row chunk's slot-0s into one row: [W, R, C, L, N] ->
-    [W, ceil(R/N), C, L, N]."""
-    W, R = cur.shape[0], cur.shape[1]
+    [W, ceil(R/N), C, L, N].  tree: see packer.pack."""
     n = params.n
-    chunks = -(-R // n)
-    outs = []
-    for c in range(chunks):
-        rows = cur[:, c * n: (c + 1) * n]
-        Rc = rows.shape[1]
-        M = 1 << (Rc - 1).bit_length() if Rc > 1 else 1
-        if M != Rc:
-            pad = cur.new_zeros((W, M - Rc) + tuple(rows.shape[2:]))
-            rows = torch.cat([rows, pad], dim=1)
-        cts = rows.movedim(1, 0)  # [M, W, C, L, N]
-        outs.append(packer.pack(params, ctx, cts, atk, trunc=trunc))
+    chunks = -(-cur.shape[1] // n)
+    outs = [packer.pack(params, ctx, _pack_leaves(cur[:, c * n: (c + 1) * n]),
+                        atk, trunc=trunc, tree=tree)
+            for c in range(chunks)]
     return torch.stack(outs, dim=1)
 
 
-def read_impl(params: Params, ctx: NTTContext, data, coords, atk):
+def read_impl(params: Params, ctx: NTTContext, data, coords, atk,
+              tree: bool = False):
     """Encrypted read, all subrams batched.  coords: tuple of prepared
-    coordinates; atk: {g: prepared trace key}.
+    coordinates; atk: {g: prepared trace key}; tree: the one-launch pack
+    tree where the pack runs the full gadget (packer.pack).
 
     Read results are ephemeral, so the whole pipeline runs with the
     params' READ-path gadget truncation (the write path never
@@ -111,14 +116,14 @@ def read_impl(params: Params, ctx: NTTContext, data, coords, atk):
     for i in range(n2 - 1):
         cur = address_mod.coordinate_product(params, ctx, cur, coords[i],
                                              trunc=ept)
-        cur = _pack_rows(params, ctx, cur, atk, trunc=kst)
+        cur = _pack_rows(params, ctx, cur, atk, trunc=kst, tree=tree)
     cur = address_mod.coordinate_product(params, ctx, cur[:, 0],
                                          coords[n2 - 1], trunc=ept)
     return keyswitch.trace(params, ctx, cur, atk, trunc=kst)  # [W, C, L, N]
 
 
 def read_batch_impl(params: Params, ctx: NTTContext, data, coords_b, atk,
-                    data_ntt=None):
+                    data_ntt=None, pack_deep: int = 0, tree: bool = False):
     """Batched encrypted read at A addresses.  coords_b: tuple of stacked
     prepared coordinates, leading axis A.  Returns int32[A, W, C, L, N],
     the same integers as A single reads.
@@ -132,7 +137,16 @@ def read_batch_impl(params: Params, ctx: NTTContext, data, coords_b, atk,
         rows a launch; rows of a pack are independent, so the integers are
         those of a per-address pack).
     The level-0 output is A times the RAM's size: callers split a large
-    batch (FheRam.read_batch does, by its batch_slice argument)."""
+    batch (FheRam.read_batch does, by its batch_slice argument).
+
+    pack_deep = d > 0 is the hybrid-depth pack schedule: the shallow merge
+    levels run per address down to d surviving nodes (packer.pack_prefix,
+    W rows a pair as in a single read), and the remaining log2(d) levels
+    run once with the batch folded into the row axis
+    (packer.pack_tree(prescale=False)).  It applies to a level packed from
+    one chunk of more than d leaves; the integers are the same.
+    tree: the one-launch pack tree where the folded pack runs the full
+    gadget (packer.pack)."""
     ept, kst = params.read_ep_trunc, params.read_ks_trunc
     n2 = len(coords_b)
     A = coords_b[0].shape[0]
@@ -142,9 +156,21 @@ def read_batch_impl(params: Params, ctx: NTTContext, data, coords_b, atk,
                                                  coords_b[0], data_ntt,
                                                  trunc=ept)
     for i in range(1, n2):
-        flat = cur.reshape((A * W,) + cur.shape[2:])
-        flat = _pack_rows(params, ctx, flat, atk, trunc=kst)
-        cur = flat.reshape((A, W) + flat.shape[1:])
+        rows = cur.shape[2]
+        if (A > 1 and pack_deep > 0 and rows <= params.n
+                and pack_deep < (1 << (rows - 1).bit_length())):
+            pref = torch.stack(
+                [packer.pack_prefix(params, ctx, _pack_leaves(cur[a]), atk,
+                                    pack_deep, trunc=kst)
+                 for a in range(A)], dim=1)  # [d, A, W, C, L, N]
+            root = packer.pack_tree(
+                params, ctx, pref.reshape((pack_deep, A * W) + pref.shape[3:]),
+                atk, dilate=1, prescale=False, trunc=kst)
+            cur = root.reshape((A, W, 1) + root.shape[1:])
+        else:
+            flat = cur.reshape((A * W,) + cur.shape[2:])
+            flat = _pack_rows(params, ctx, flat, atk, trunc=kst, tree=tree)
+            cur = flat.reshape((A, W) + flat.shape[1:])
         if i == n2 - 1:
             cur = cur[:, :, 0]  # [A, W, C, L, N]
         cur = address_mod.coordinate_product_perbatch(params, ctx, cur,
@@ -157,9 +183,11 @@ def read_batch_impl(params: Params, ctx: NTTContext, data, coords_b, atk,
     return out.reshape((A, W) + out.shape[1:])
 
 
-def rpw_impl(params: Params, ctx: NTTContext, data, coords, atk):
+def rpw_impl(params: Params, ctx: NTTContext, data, coords, atk,
+             pack_tree: bool = False):
     """read_prepare_write: the read's output, plus the rotated levels the
-    write needs.  Returns (out, data, tree).
+    write needs.  Returns (out, data, tree).  pack_tree: the one-launch
+    pack tree (packer.pack).
 
     Exact data carry: the write's final inverse product distributes over
     the delta add,
@@ -182,7 +210,7 @@ def rpw_impl(params: Params, ctx: NTTContext, data, coords, atk):
                                              trunc=ept)
         levels.append(cur)
         if i < n2 - 1:
-            cur = _pack_rows(params, ctx, cur, atk, trunc=kst)
+            cur = _pack_rows(params, ctx, cur, atk, trunc=kst, tree=pack_tree)
     out = keyswitch.trace(params, ctx, levels[-1][:, 0], atk,
                           trunc=params.read_ks_trunc)
     # persist only the levels the write reads: the packed upper levels
@@ -200,8 +228,18 @@ def _invert_coordinate(params: Params, ctx: NTTContext, coord, keys):
     return ggsw.prepare(ctx, torch.stack(inv, dim=0))
 
 
+def _invert_coordinates_batched(params: Params, ctx: NTTContext, coords_b,
+                                keys):
+    """`_invert_coordinate` of a batch of coordinates [B, dig, D, C, C2,
+    Lg, N] -> [B, P, dig, D, C, C2, Lg, N], the integers of B separate
+    calls.  Every address's GGSW rows go against the same two keys, so
+    each inversion step is one launch over all B * dig * D rows, not B."""
+    inv = keys_mod.ggsw_automorphism_inv(params, ctx, coords_b, keys)
+    return ggsw.prepare(ctx, inv).movedim(0, 1)
+
+
 def write_impl(params: Params, ctx: NTTContext, data, tree, w, addr_coords,
-               keys: keys_mod.EvaluationKeysPrepared):
+               keys: keys_mod.EvaluationKeysPrepared, split_tree: bool = False):
     """Encrypted write.  addr_coords: tuple of COEFFICIENT-domain
     coordinates (the inverse GGSWs are derived homomorphically in here).
     data is the original (un-rotated) RAM, which rpw_impl carries exactly,
@@ -209,7 +247,8 @@ def write_impl(params: Params, ctx: NTTContext, data, tree, w, addr_coords,
 
     The walk propagates only the delta down the tree: root delta
     (w - trace(root)) -> per-slot extracted deltas -> inverse-rotated
-    base delta rows, and the last step is data + inv0 (x) deltas."""
+    base delta rows, and the last step is data + inv0 (x) deltas.
+    split_tree: the one-launch split tree (keyswitch.extract_slots)."""
     atk = keys.atk_glwe
     n = params.n
     n2 = len(addr_coords)
@@ -232,7 +271,8 @@ def write_impl(params: Params, ctx: NTTContext, data, tree, w, addr_coords,
             # [delta at the written row index < Rc], so the support is
             # bounded and the per-leaf tail traces are skipped
             delta_next.append(keyswitch.extract_slots(
-                params, ctx, d_lo, Rc, atk, bounded_support=True))
+                params, ctx, d_lo, Rc, atk, bounded_support=True,
+                tree=split_tree))
         deltas = torch.cat(delta_next, dim=1)
 
     # last step: inverse-rotate the delta rows and add them to the exact
@@ -240,6 +280,90 @@ def write_impl(params: Params, ctx: NTTContext, data, tree, w, addr_coords,
     inv0 = _invert_coordinate(params, ctx, addr_coords[0], keys)
     upd = address_mod.coordinate_product(params, ctx, deltas, inv0)
     return limb_ops.normalize(data + upd)
+
+
+def rmw_batch_impl(params: Params, ctx: NTTContext, data, coords_prep_b,
+                   coords_coeff_b, w_b, keys: keys_mod.EvaluationKeysPrepared,
+                   data_ntt=None, tree: bool = False):
+    """Batched read-modify-write at B DISTINCT encrypted addresses in one
+    call.  The exact-data-carry write makes it possible: rpw leaves the
+    data untouched, so B deltas simply ADD:
+    data' = data + sum_b inv0_b (x) t_d_b.
+
+    Semantics: all B reads see the PRE-write state (those of a vectorised
+    store).  Addresses must be DISTINCT -- a duplicated address would sum
+    two (w - old) deltas; this cannot be checked under encryption, so it
+    is the caller's contract (as for any parallel store).
+
+    coords_prep_b:  tuple over coordinates of stacked PREPARED coordinates
+        [B, P, dig, ...] (convert.stack_addresses);
+    coords_coeff_b: the same stacking of the COEFFICIENT-domain
+        coordinates (the inverse GGSWs are derived in here);
+    w_b: int32[B, W, C, L, N] encrypted write words.
+
+    Returns (outs, new_data): outs int32[B, W, C, L, N] -- the values AT
+    the addresses before the write (from the same full-gadget root trace
+    that feeds the delta, so slightly LESS noisy than a truncated batched
+    read); new_data a new tensor (data is left as it was).
+
+    Generic in geometry: any n2 and any row count -- the forward walk
+    packs level by level (multi-chunk packs like _pack_rows), and the
+    delta walk loops the mid levels like write_impl (one extraction per
+    pack chunk per level).  Shared across the batch: the level-0
+    transform (or none with data_ntt), every level's products with
+    per-address keys in one launch, pack, trace and extraction with the
+    batch folded into the row axis (rows are independent: the integers are
+    those of a per-address walk), and each GGSW inversion step in one
+    launch for all addresses.  tree: the one-launch pack and split trees."""
+    n2 = len(coords_prep_b)
+    B = coords_prep_b[0].shape[0]
+    W, R = data.shape[0], data.shape[1]
+    atk = keys.atk_glwe
+    n = params.n
+    # rows entering the level-i product: the RAM, then each tree level
+    rows_levels = [R] + params.tree_shape()
+
+    # rpw forward walk, batched: full gadget (the tree feeds the write)
+    cur = address_mod.coordinate_product_batched(params, ctx, data,
+                                                 coords_prep_b[0], data_ntt)
+    for i in range(1, n2):
+        flat = cur.reshape((B * W,) + cur.shape[2:])
+        flat = _pack_rows(params, ctx, flat, atk, tree=tree)
+        cur = flat.reshape((B, W) + flat.shape[1:])  # [B, W, chunks, ...]
+        if i == n2 - 1:
+            cur = cur[:, :, 0]  # [B, W, C, L, N]
+        cur = address_mod.coordinate_product_perbatch(params, ctx, cur,
+                                                      coords_prep_b[i])
+    root = cur if n2 > 1 else cur[:, :, 0]
+
+    # one FULL trace serves both the read-out and the delta
+    t = keyswitch.trace(params, ctx,
+                        root.reshape((B * W,) + root.shape[2:]), atk)
+    outs = t.reshape((B, W) + t.shape[1:])
+    deltas = limb_ops.normalize(w_b - outs)[:, :, None]  # [B, W, 1, C, L, N]
+
+    # walk each delta down to base-row granularity, mirroring write_impl's
+    # mid loop: per level, per pack chunk, one inverse CMux and one bounded
+    # split-tree extraction
+    for i in range(n2 - 2, -1, -1):
+        inv_b = _invert_coordinates_batched(params, ctx, coords_coeff_b[i + 1],
+                                            keys)
+        chunks = deltas.shape[2]
+        rows_i = rows_levels[i]
+        parts = []
+        for j in range(chunks):
+            d_lo = address_mod.coordinate_product_perbatch(
+                params, ctx, deltas[:, :, j], inv_b)
+            Rc = min(n, rows_i - j * n)
+            # extract_slots puts the slot axis at -4 -> [B, W, Rc, ...]
+            parts.append(keyswitch.extract_slots(
+                params, ctx, d_lo, Rc, atk, bounded_support=True, tree=tree))
+        deltas = torch.cat(parts, dim=2)
+
+    inv0_b = _invert_coordinates_batched(params, ctx, coords_coeff_b[0], keys)
+    upd = address_mod.coordinate_product_perbatch(params, ctx, deltas, inv0_b)
+    new_data = limb_ops.normalize(data + upd.sum(dim=0, dtype=torch.int32))
+    return outs, new_data
 
 
 # --------------------------------------------------------------------------
@@ -265,12 +389,18 @@ class FheRam:
     method must lie on the server's device.
 
     Protocol: read_prepare_write makes the state pending; only write takes
-    a pending state, and write takes no other."""
+    a pending state, and write takes no other.
+
+    tree_kernels=True runs every full-gadget pack of at most 32 leaves
+    (wider ones after per-level merges down to 32) and every slot
+    extraction of at most 64 slots in ONE kernel launch each instead of
+    one a level; all results are the same integers."""
 
     def __init__(self, params: Params,
                  keys_prepared: keys_mod.EvaluationKeysPrepared,
-                 device="cuda"):
+                 device="cuda", tree_kernels: bool = False):
         self.params = params
+        self.tree_kernels = bool(tree_kernels)
         self.device = ntt_cuda.require_device(device)
         self.ctx = get_ntt_context(params.n, params.primes)
         self.keys = keys_prepared
@@ -309,30 +439,59 @@ class FheRam:
             self._on_device("spectral cache", cache)
             coords_b = tuple(c[None] for c in addr_prep.coordinates)
             return read_batch_impl(self.params, self.ctx, state.data, coords_b,
-                                   self.keys.atk_glwe, cache)[0]
+                                   self.keys.atk_glwe, cache,
+                                   tree=self.tree_kernels)[0]
         return read_impl(self.params, self.ctx, state.data,
-                         addr_prep.coordinates, self.keys.atk_glwe)
+                         addr_prep.coordinates, self.keys.atk_glwe,
+                         tree=self.tree_kernels)
 
     @torch.no_grad()
     def read_batch(self, state: RamState, addrs_prep, cache=None,
-                   batch_slice: int = 64):
+                   batch_slice: int = 64, pack_deep: int = 0):
         """Batched reads at many addresses.  addrs_prep: tuple of prepared
         coordinates stacked on axis 0 (convert.stack_addresses).  Returns
         int32[A, W, C, L, N].  More than batch_slice addresses run as
         consecutive slices of that size: the level-0 intermediate of one
-        slice is batch_slice times the RAM's ciphertext."""
+        slice is batch_slice times the RAM's ciphertext.  pack_deep: the
+        hybrid-depth pack schedule (read_batch_impl); 0 folds every level
+        over the batch.  The same integers either way; on an NVIDIA H100
+        80GB HBM3 (700 W) pack_deep=4 was 20 % slower than 0 at 16
+        addresses of the 2^18 x 4-byte preset (27.2 ms against 22.5,
+        chip_smoke.py), so leave it at 0 unless a measurement says otherwise."""
         assert not state.pending, "pending write: call write() first"
         if batch_slice < 1:
             raise ValueError(f"batch_slice = {batch_slice}")
+        if pack_deep < 0 or pack_deep & (pack_deep - 1):
+            raise ValueError(f"pack_deep = {pack_deep}: 0 or a power of two")
         self._on_device("addresses", *addrs_prep)
         if cache is not None:
             self._on_device("spectral cache", cache)
         A = addrs_prep[0].shape[0]
         outs = [read_batch_impl(self.params, self.ctx, state.data,
                                 tuple(c[a0: a0 + batch_slice] for c in addrs_prep),
-                                self.keys.atk_glwe, cache)
+                                self.keys.atk_glwe, cache, pack_deep,
+                                self.tree_kernels)
                 for a0 in range(0, A, batch_slice)]
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+    @torch.no_grad()
+    def rmw_batch(self, state: RamState, addrs_prep, addrs_coeff, w_b):
+        """Batched read-modify-write at B DISTINCT encrypted addresses
+        (rmw_batch_impl): ONE call reads all B pre-write values and writes
+        all B words.  addrs_prep / addrs_coeff: the prepared and the
+        coefficient-domain coordinates of the same addresses, each stacked
+        on axis 0 (convert.stack_addresses); w_b: int32[B, W, C, L, N]
+        (ram.encrypt_write_word, stacked).  Returns (outs int32[B, W, C, L,
+        N], new state with a new data tensor).  Distinct addresses are the caller's contract
+        (those of a parallel store: a duplicate would sum its deltas)."""
+        assert not state.pending, "pending write: call write() first"
+        self._on_device("addresses", *addrs_prep)
+        self._on_device("addresses", *addrs_coeff)
+        self._on_device("write words", w_b)
+        outs, new_data = rmw_batch_impl(
+            self.params, self.ctx, state.data, addrs_prep, addrs_coeff, w_b,
+            self.keys, tree=self.tree_kernels)
+        return outs, RamState(data=new_data, tree=(), pending=False)
 
     @torch.no_grad()
     def read_prepare_write(self, state: RamState,
@@ -342,7 +501,8 @@ class FheRam:
         assert not state.pending, "pending write: call write() first"
         self._on_device("address", *addr_prep.coordinates)
         out, data, tree = rpw_impl(self.params, self.ctx, state.data,
-                                   addr_prep.coordinates, self.keys.atk_glwe)
+                                   addr_prep.coordinates, self.keys.atk_glwe,
+                                   pack_tree=self.tree_kernels)
         return out, RamState(data=data, tree=tree, pending=True)
 
     @torch.no_grad()
@@ -355,5 +515,6 @@ class FheRam:
         self._on_device("write word", w)
         self._on_device("address", *addr.coordinates)
         new_data = write_impl(self.params, self.ctx, state.data, state.tree,
-                              w, addr.coordinates, self.keys)
+                              w, addr.coordinates, self.keys,
+                              split_tree=self.tree_kernels)
         return RamState(data=new_data, tree=(), pending=False)

@@ -12,6 +12,7 @@ prepared by each side's own `prepare`; outputs are compared bit for bit
 (np.array_equal, tolerance 0: integer arithmetic).  The whole batched
 read on the JAX client's ciphertexts is in tests/test_torch_read.py."""
 
+import functools
 from dataclasses import replace
 
 import numpy as np
@@ -37,6 +38,14 @@ from fhe_ram_tpu_torch.ram import address as taddress
 # one intra-op thread: the suite runs several workers side by side, and
 # these sizes gain nothing from more
 torch.set_num_threads(1)
+
+# The JAX reference is compiled without XLA's optimisation passes and in one
+# piece: the integers are the same, these sizes run in no time either way,
+# and the compile takes a third less CPU time (the suite's workers share
+# their cores, so CPU time is what the whole run pays for).
+_jit = functools.partial(jax.jit, compiler_options={
+    "xla_backend_optimization_level": 0,
+    "xla_cpu_parallel_codegen_split_count": 1})
 
 TRUNC = dict(read_ks_digits=2, read_ks_limbs=3,
              read_ep_digits=2, read_ep_limbs=3)
@@ -66,7 +75,7 @@ def test_external_product_batched_matches_jax():
     gg = _limbs(rnd, (B, L, C, C, JWIDE.limbs_ggsw, N))
     ct = _limbs(rnd, (B, C, L, N), bits=17)
     base = _limbs(rnd, (B, C, L, N), bits=17)
-    want = np.asarray(jax.jit(lambda c, g, b: jggsw.external_product_batched(
+    want = np.asarray(_jit(lambda c, g, b: jggsw.external_product_batched(
         JWIDE, JCTX, c, jnp.moveaxis(_jprep_each(g), 0, 1), base=b, sign=-1))(
             jnp.asarray(ct), jnp.asarray(gg), jnp.asarray(base)))
     tg = torch.stack([tggsw.prepare(TCTX, _t(g)) for g in gg], dim=1)
@@ -82,7 +91,7 @@ def test_external_product_keyed_matches_jax():
     K, B = 2, 3
     gg = _limbs(rnd, (K, L, C, C, JWIDE.limbs_ggsw, N))
     ct = _limbs(rnd, (K, B, C, L, N))
-    want = np.asarray(jax.jit(lambda c, g: jggsw.external_product_keyed(
+    want = np.asarray(_jit(lambda c, g: jggsw.external_product_keyed(
         JWIDE, JCTX, c, jnp.moveaxis(_jprep_each(g), 0, 1), trunc=(2, 3)))(
             jnp.asarray(ct), jnp.asarray(gg)))
     tg = torch.stack([tggsw.prepare(TCTX, _t(g)) for g in gg], dim=1)
@@ -108,7 +117,7 @@ def test_coordinate_product_batched_matches_jax_with_and_without_cache(case):
     coords = _limbs(rnd, (A, dig, jpar.dnum_ct, C, C, jpar.limbs_ggsw, N))
     ct = _limbs(rnd, (2, 2, C, L, N))
     trunc = jpar.read_ep_trunc
-    want = np.asarray(jax.jit(lambda c, g: jaddress.coordinate_product_batched(
+    want = np.asarray(_jit(lambda c, g: jaddress.coordinate_product_batched(
         jpar, JCTX, c, _jprep_each(g), trunc=trunc))(
             jnp.asarray(ct), jnp.asarray(coords)))
     tcoords = torch.stack([tggsw.prepare(TCTX, _t(g)) for g in coords], dim=0)
@@ -133,7 +142,7 @@ def test_coordinate_product_perbatch_matches_jax():
     A = 3
     coords = _limbs(rnd, (A, 2, jpar.dnum_ct, C, C, jpar.limbs_ggsw, N))
     ct_b = _limbs(rnd, (A, 2, C, L, N))
-    want = np.asarray(jax.jit(lambda c, g: jaddress.coordinate_product_perbatch(
+    want = np.asarray(_jit(lambda c, g: jaddress.coordinate_product_perbatch(
         jpar, JCTX, c, _jprep_each(g)))(jnp.asarray(ct_b), jnp.asarray(coords)))
     tcoords = torch.stack([tggsw.prepare(TCTX, _t(g)) for g in coords], dim=0)
     got = taddress.coordinate_product_perbatch(tpar, TCTX, _t(ct_b), tcoords)

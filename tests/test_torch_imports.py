@@ -24,11 +24,12 @@ def test_port_has_the_expected_layout():
                  "ops/crt.py", "ops/limb.py", "ops/poly.py", "ops/modular.py",
                  "core/rng.py", "core/glwe.py", "core/ggsw.py",
                  "core/keyswitch.py", "core/packer.py", "core/keys.py",
+                 "core/noise.py", "utils/io.py", "utils/profiling.py",
                  "ram/address.py", "ram/ram.py", "tools/time_fold_chunks.py"):
         assert want in names, want
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "fhe_core.cuh", "ntt.cu", "fold.cu", "trace.cu", "pack_merge.cu",
-        "split.cu"}
+        "split.cu", "split_tree.cu", "pack_tree.cu"}
     # every source the build names is there, and nothing is left unnamed
     from fhe_ram_tpu_torch.ops import ntt_cuda
     assert {f"{s}.cu" for s in ntt_cuda.SOURCES} == {
@@ -36,7 +37,7 @@ def test_port_has_the_expected_layout():
     assert set(ntt_cuda.LAUNCHES) == {
         "ntt_fwd", "ntt_inv", "fused_external_fold",
         "fused_external_fold_batched", "fused_trace", "fused_pack_merge",
-        "fused_split"}
+        "fused_split", "fused_split_tree", "fused_pack_tree"}
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -54,10 +55,14 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import fhe_ram_tpu_torch, fhe_ram_tpu_torch.convert\n"
         "from fhe_ram_tpu_torch.ops import ntt, ntt_cuda, crt, limb, poly, modular\n"
-        "from fhe_ram_tpu_torch.core import rng, glwe, ggsw, keyswitch, packer, keys\n"
+        "from fhe_ram_tpu_torch.core import rng, glwe, ggsw, keyswitch, packer, keys, noise\n"
         "from fhe_ram_tpu_torch.ram import address, ram\n"
+        "from fhe_ram_tpu_torch.utils import io, profiling\n"
         "from fhe_ram_tpu_torch.tools import time_fold_chunks\n"
         "assert callable(ram.FheRam.write) and callable(ram.FheRam.read_batch)\n"
+        "assert callable(ram.FheRam.rmw_batch) and callable(ram.rmw_batch_impl)\n"
+        "assert callable(ntt_cuda.fused_split_tree) and callable(ntt_cuda.fused_pack_tree)\n"
+        "assert callable(packer.pack_tree) and callable(packer.pack_prefix)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fhe_ram_tpu' or m.startswith('fhe_ram_tpu.')]\n"
         "assert not bad, bad\n")

@@ -3,6 +3,7 @@ Python bignums, on the CPU.  All arithmetic is exact integer arithmetic,
 so every comparison is np.array_equal (tolerance 0)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -26,6 +27,14 @@ from fhe_ram_tpu_torch.ops import poly as tpoly
 # one intra-op thread: the suite runs several workers side by side, and
 # these sizes gain nothing from more
 torch.set_num_threads(1)
+
+# The JAX reference is compiled without XLA's optimisation passes and in one
+# piece: the integers are the same, these sizes run in no time either way,
+# and the compile takes a third less CPU time (the suite's workers share
+# their cores, so CPU time is what the whole run pays for).
+_jit = functools.partial(jax.jit, compiler_options={
+    "xla_backend_optimization_level": 0,
+    "xla_cpu_parallel_codegen_split_count": 1})
 
 
 PRIMES = tparams.DEFAULT_PRIMES
@@ -112,7 +121,7 @@ def test_ntt_convolution_matches_jax_n4096():
     from fhe_ram_tpu.ops.modular import mul_mod
     jctx = jntt.get_ntt_context(n, PRIMES)
     pj, ipj = jctx.consts(2)
-    conv = jax.jit(lambda u, v: jto_canonical(jntt.ntt_inv(jctx, mul_mod(
+    conv = _jit(lambda u, v: jto_canonical(jntt.ntt_inv(jctx, mul_mod(
         jntt.ntt_fwd(jctx, u), jntt.ntt_fwd(jctx, v), pj, ipj)), pj))
     want = np.asarray(conv(jnp.asarray(a), jnp.asarray(b)))
     assert np.array_equal(got, want)

@@ -1,19 +1,21 @@
 """The slices as a whole: the PyTorch port's encrypted read, its
-read-modify-write cycle and its batched read against the JAX package's,
-on the CPU, on the JAX client's own ciphertexts.
+read-modify-write cycle, its batched read and its batched
+read-modify-write against the JAX package's, on the CPU, on the JAX
+client's own ciphertexts.
 
 JAX keygen, encrypt_ram, address.encrypt and encrypt_write_word at
 PARAMS_TEST_SMALL (two address levels, two chained CMux digits a
 coordinate, a pack tree, the full trace, a two-level split tree);
 convert.from_reference carries secret, keys, RAM, addresses and the write
 word across.  The port's FheRam.read equals read_impl, read_prepare_write
-equals rpw_impl, write equals write_impl and read_batch equals
-read_batch_impl bit for bit (np.array_equal; integer arithmetic,
+equals rpw_impl, write equals write_impl, read_batch equals
+read_batch_impl and rmw_batch equals rmw_batch_impl bit for bit (np.array_equal; integer arithmetic,
 tolerance 0), and the port's own decrypt recovers the JAX client's
 plaintext under the noise bound.  One JAX client serves all tests of the
 file (a second one would cost ~25 s of compiles).  The other geometries
 are compared in tests/test_torch_read_presets.py."""
 
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -43,6 +45,14 @@ from fhe_ram_tpu_torch.ram import ram as tram
 # these sizes gain nothing from more
 torch.set_num_threads(1)
 
+# The JAX reference is compiled without XLA's optimisation passes and in one
+# piece: the integers are the same, these sizes run in no time either way,
+# and the compile takes a third less CPU time (the suite's workers share
+# their cores, so CPU time is what the whole run pays for).
+_jit = functools.partial(jax.jit, compiler_options={
+    "xla_backend_optimization_level": 0,
+    "xla_cpu_parallel_codegen_split_count": 1})
+
 
 def _addresses(par):
     return [0, 1, par.max_addr // 2 + 3, par.max_addr - 1]
@@ -57,7 +67,7 @@ def client():
     jctx = jget_ctx(jpar.n, jpar.primes)
     src = jrng.Source(7)
     sk = jrng.ternary_secret(src.split(), jpar.rank, jpar.n, jpar.xs_density)
-    js_ntt = jax.jit(lambda s: jglwe.secret_prepare(jctx, s))(sk)
+    js_ntt = _jit(lambda s: jglwe.secret_prepare(jctx, s))(sk)
     ek = jkeys.keygen(jpar, sk, src)
     data = np.random.default_rng(11).integers(
         0, 256, size=jpar.max_addr * jpar.word_size).astype(np.uint8)
@@ -77,8 +87,8 @@ def client():
         return (jram.read_impl(jpar, jctx, d, coords, k),
                 jram.rpw_impl(jpar, jctx, d, coords, k))
 
-    jread_rpw = jax.jit(read_and_rpw)
-    jwrite = jax.jit(lambda d, tree, w, a, atk, atk_ggsw, tsk: jram.write_impl(
+    jread_rpw = _jit(read_and_rpw)
+    jwrite = _jit(lambda d, tree, w, a, atk, atk_ggsw, tsk: jram.write_impl(
         jpar, jctx, d, tree, w, a.coordinates, prepared(atk, atk_ggsw, tsk)))
     jkey_args = (ek.atk_glwe, ek.atk_ggsw, ek.tsk)
 
@@ -201,7 +211,7 @@ def test_read_batch_matches_jax_and_the_single_reads(client, cached):
         coords_b = tuple(
             jnp.stack([c.addrs[i].coordinates[j] for i in idxs], axis=0)
             for j in range(len(c.addrs[idxs[0]].coordinates)))
-        c.jresults["batch"] = np.asarray(jax.jit(
+        c.jresults["batch"] = np.asarray(_jit(
             lambda d, cb, atk: jram.read_batch_impl(
                 c.jpar, c.jctx, d,
                 tuple(jax.vmap(lambda g: jggsw.prepare(c.jctx, g))(x) for x in cb),
@@ -223,3 +233,46 @@ def test_read_batch_matches_jax_and_the_single_reads(client, cached):
     sliced = c.server.read_batch(state, stack_addresses(preps), cache=cache,
                                  batch_slice=2)
     assert torch.equal(sliced, got)
+
+
+def test_rmw_batch_matches_jax_on_the_jax_clients_ciphertexts(client):
+    """rmw_batch of 2 addresses == rmw_batch_impl: the read-outs and the
+    whole new RAM, with the per-level kernels and with the tree kernels;
+    the read-outs decode to the old words and the read-back to the new."""
+    c = client
+    idxs = _addresses(c.jpar)[2:]
+    words = np.array([[0x5A, 0xC3, 0x17, 0x80], [0x01, 0xFE, 0x7F, 0x33]],
+                     dtype=np.uint8)[:, :c.jpar.word_size]
+    w_cts = [jram.encrypt_write_word(c.jpar, c.jctx, c.js_ntt, w, c.src)
+             for w in words]
+    coords_b = tuple(
+        jnp.stack([c.addrs[i].coordinates[j] for i in idxs], axis=0)
+        for j in range(len(c.addrs[idxs[0]].coordinates)))
+    want_outs, want_data = _jit(
+        lambda d, cb, w, atk, atk_ggsw, tsk: jram.rmw_batch_impl(
+            c.jpar, c.jctx, d,
+            tuple(jax.vmap(lambda g: jggsw.prepare(c.jctx, g))(x) for x in cb),
+            cb, w, jkeys.prepare(c.jpar, jkeys.EvaluationKeys(atk, atk_ggsw, tsk))))(
+                c.ram_ct, coords_b, jnp.stack(w_cts), *c.jkey_args)
+
+    pairs = [c.port_address(i) for i in idxs]
+    coeff_b = stack_addresses([a for a, _ in pairs])
+    prep_b = stack_addresses([p for _, p in pairs])
+    w_b = from_reference(words=w_cts, device="cpu").words
+    assert w_b.shape == (2,) + tuple(np.asarray(w_cts[0]).shape)
+    state = c.server.init_state(c.carried.data)
+    outs, new_state = c.server.rmw_batch(state, prep_b, coeff_b, w_b)
+    assert outs.dtype == torch.int32 and not new_state.pending
+    assert np.array_equal(outs.numpy(), np.asarray(want_outs))
+    assert np.array_equal(new_state.data.numpy(), np.asarray(want_data))
+    tree_server = tram.FheRam(c.tpar, c.server.keys, device="cpu", tree_kernels=True)
+    outs_t, state_t = tree_server.rmw_batch(state, prep_b, coeff_b, w_b)
+    assert torch.equal(outs_t, outs) and torch.equal(state_t.data, new_state.data)
+
+    plain = c.data.copy()
+    W = c.jpar.word_size
+    for k, idx in enumerate(idxs):
+        c.check_word(outs[k], idx, c.data)
+        plain[idx * W: (idx + 1) * W] = words[k]
+    for idx in _addresses(c.jpar):
+        c.check_word(c.server.read(new_state, c.port_address(idx)[1]), idx, plain)

@@ -12,6 +12,7 @@ client's real ciphertexts go through tests/test_torch_read.py; making
 them at every preset costs more JAX compiles than the suite's time
 allows.)"""
 
+import functools
 from dataclasses import replace
 
 import numpy as np
@@ -37,6 +38,14 @@ from fhe_ram_tpu_torch.ram import ram as tram
 # one intra-op thread: the suite runs several workers side by side, and
 # these sizes gain nothing from more
 torch.set_num_threads(1)
+
+# The JAX reference is compiled without XLA's optimisation passes and in one
+# piece: the integers are the same, these sizes run in no time either way,
+# and the compile takes a third less CPU time (the suite's workers share
+# their cores, so CPU time is what the whole run pays for).
+_jit = functools.partial(jax.jit, compiler_options={
+    "xla_backend_optimization_level": 0,
+    "xla_cpu_parallel_codegen_split_count": 1})
 
 
 TRUNC = dict(read_ks_digits=2, read_ks_limbs=3,
@@ -66,7 +75,7 @@ def test_read_matches_jax_bit_for_bit(name):
                    for row in jpar.base2d().rows) for _ in range(2)]
 
     jctx = jget_ctx(n, jpar.primes)
-    jread = jax.jit(lambda d, a, ks: jram.read_impl(
+    jread = _jit(lambda d, a, ks: jram.read_impl(
         jpar, jctx, d, jaddress.prepare(jctx, jaddress.Address(a)).coordinates,
         {g: jks.key_prepare(jctx, k) for g, k in ks.items()}))
 

@@ -12,6 +12,8 @@ compared bit for bit (np.array_equal, tolerance 0: integer arithmetic).
 The whole cycle on the JAX client's ciphertexts is in
 tests/test_torch_read.py."""
 
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -42,6 +44,14 @@ from fhe_ram_tpu_torch.ram import ram as tram
 # one intra-op thread: the suite runs several workers side by side, and
 # these sizes gain nothing from more
 torch.set_num_threads(1)
+
+# The JAX reference is compiled without XLA's optimisation passes and in one
+# piece: the integers are the same, these sizes run in no time either way,
+# and the compile takes a third less CPU time (the suite's workers share
+# their cores, so CPU time is what the whole run pays for).
+_jit = functools.partial(jax.jit, compiler_options={
+    "xla_backend_optimization_level": 0,
+    "xla_cpu_parallel_codegen_split_count": 1})
 
 JCTX = jget_ctx(JWIDE.n, JWIDE.primes)
 TCTX = tget_ctx(TWIDE.n, TWIDE.primes)
@@ -77,7 +87,7 @@ def test_extract_slots_matches_jax(count, bounded):
     rnd = np.random.default_rng(20 + count)
     jk, tk = _atk(rnd, JWIDE.trace_gal_els[:2 if bounded else None])
     ct = _limbs(rnd, (2, C, JWIDE.limbs_ct, JWIDE.n))
-    want = np.asarray(jax.jit(lambda c, k: jks.extract_slots(
+    want = np.asarray(_jit(lambda c, k: jks.extract_slots(
         JWIDE, JCTX, c, count, _jprep(k), bounded_support=bounded))(
             jnp.asarray(ct), jk))
     got = tks.extract_slots(TWIDE, TCTX, _t(ct), count, tk,
@@ -131,7 +141,7 @@ def test_split_level_matches_the_composed_form_in_jax():
         child0 = jks.trace_steps(JWIDE, JCTX, nodes, _jprep(k), (g,))
         return child0, jlimb.normalize(jpoly.rotate(2 * nodes - child0, -t))
 
-    want0, want1 = jax.jit(composed)(jnp.asarray(ct), jk)
+    want0, want1 = _jit(composed)(jnp.asarray(ct), jk)
     got0, got1 = ntt_cuda.fused_split(TCTX, _t(ct), t, g,
                                       tks.kernel_key_rows(tk[g]))
     assert np.array_equal(got0.numpy(), np.asarray(want0))
@@ -146,7 +156,7 @@ def test_ggsw_automorphism_inv_matches_jax():
     gg = _limbs(rnd, (JWIDE.dnum_ct, C, C, JWIDE.limbs_ggsw, n))
     akey = _limbs(rnd, (D, JWIDE.rank, C, Lg, n))
     tsk = _limbs(rnd, (JWIDE.rank, D, C, C, Lg, n))
-    want = np.asarray(jax.jit(lambda x, a, t: jkeys.ggsw_automorphism_inv(
+    want = np.asarray(_jit(lambda x, a, t: jkeys.ggsw_automorphism_inv(
         JWIDE, JCTX, x, jkeys.EvaluationKeysPrepared(
             atk_glwe={}, atk_ggsw={-1: jks.key_prepare(JCTX, a)},
             tsk=jggsw.prepare(JCTX, t))))(
