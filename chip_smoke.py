@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's encrypted RAM once on one NVIDIA GPU: reads,
-read-modify-write cycles, batched reads and batched read-modify-writes.
+read-modify-write cycles, batched reads, batched read-modify-writes and
+encrypted VM instruction cycles.
 
     python3 chip_smoke.py [--seed N] [--reads N] [--profile] [--kernels-only]
                           [--verbose-build]
@@ -11,8 +12,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
   build          compiles the CUDA kernels from fhe_ram_tpu_torch/csrc
   kernel checks  each kernel against its plain PyTorch version on the card,
                  at the shapes the paths below give it at
-                 PARAMS_2_18_TURBO_READOPT (torch.equal: integer arithmetic,
-                 tolerance 0), with times
+                 PARAMS_2_18_TURBO_READOPT, and the VM's kernels at the
+                 cycle's shapes at PARAMS_2_18_READOPT (torch.equal: integer
+                 arithmetic, tolerance 0), with times
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -35,8 +37,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  the plain versions on the card: outs and the whole new
                  RAM bit-equal
   tree_kernels_cycle  the single cycle with tree_kernels=True beside the
-                 default's, bit-equal; read_batch(pack_deep=4) beside the default
-  kernels        one line for all kernels: launches over the four paths,
+                 default's, bit-equal
+  vm_cycle       the port's own client at PARAMS_2_18_READOPT (keygen, RAM,
+                 operands from --seed), then 6 chained vm_cycle calls, each
+                 selecting another ALU op by its encrypted id and storing
+                 another width at another offset at its own encrypted
+                 pointer: rd, the fetched word, every stored word read back
+                 and two untouched addresses decode under the noise bound;
+                 launches per cycle; the VM kernels' launched shapes are the
+                 checked ones; the four parts timed apart
+  vm_cycle_vs_plain  the last cycle again through the plain versions on the
+                 card: rd, fetched and the whole new RAM bit-equal
+  kernels        one line for all kernels: launches over the five paths,
                  error, time, the plain version's time, and the card's bound
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA device and
@@ -119,6 +131,123 @@ def bound(bytes_moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# -- the VM cycle's kernels (9, 10, 11) --------------------------------------
+
+VM_KERNELS = ("fused_bitwise", "fused_blind_rotate", "fused_dp_chain")
+# chained cycles: the ALU op whose result rd must decode (the carry chain,
+# the bitwise group, a compare, and the three shift kinds, one of them by
+# the immediate), the store width and the byte offset of the store at the
+# cycle's own pointer
+VM_PLAN = (("add", "sb", 1), ("xor", "sh", 2), ("sltu", "sw", 0), ("sll", "sb", 3),
+           ("srai", "sh", 0), ("srl", "none", 1))
+# launches of one cycle, counted from the code: the carry chain and the
+# bitwise group one each; blind rotations: select_rd, select_store and the
+# pointer's two address digits; the shift group's word_from_bits and five
+# barrel levels (batched folds); traces: the shift extraction, select_rd,
+# select_store's two extractions and its clean-up, rpw, the byte repack,
+# the write; folds, merges, splits and transforms of rpw and write, and the
+# two transforms of the converted address
+VM_CYCLE_LAUNCHES = dict(fused_dp_chain=1, fused_bitwise=1, fused_blind_rotate=4,
+                         fused_external_fold_batched=6, fused_trace=8,
+                         fused_external_fold=8, fused_pack_merge=6, fused_split=6,
+                         ntt_fwd=4)
+
+
+def alu_model(op, a, b, imm):
+    """What rd must decode to, for the ops of VM_PLAN."""
+    m = (1 << 32) - 1
+    signed = a - (1 << 32) if a >> 31 else a
+    return {"add": (a + b) & m, "xor": a ^ b, "sltu": int(a < b),
+            "sll": (a << (b & 31)) & m, "srl": a >> (b & 31),
+            "srai": (signed >> (imm & 31)) & m}[op]
+
+
+def store_model(sop, offset, loaded, x):
+    """The word a store of width sop at byte `offset` leaves: the loaded
+    word with that field replaced by x's low bytes."""
+    if sop == "none":
+        return loaded
+    field = ((1 << (8 * {"sb": 1, "sh": 2, "sw": 4}[sop])) - 1) << (8 * offset)
+    return (loaded & ~field & ((1 << 32) - 1)) | ((x << (8 * offset)) & field)
+
+
+def vm_note(name, *args):
+    """The shape note of one call of a VM kernel's wrapper (its arguments
+    after the context), the same for a check and for a recorded launch."""
+    if name == "fused_blind_rotate":
+        rows, keys, amounts = args
+        return (f"rows{list(rows.shape)} keys{list(keys.shape)} "
+                f"amounts={[int(a) for a in amounts]}")
+    if name == "fused_dp_chain":
+        F0, keys, deltas, op_tables, groups = args
+        return (f"F0{list(F0.shape)} keys{list(keys.shape)} "
+                f"groups={[list(g) for g in groups]}")
+    hi, lo, keys, groups = args
+    return (f"leaves{list(hi.shape)} keys{list(keys.shape)} "
+            f"groups={[list(g) for g in groups]}")
+
+
+def vm_shapes(par, vctx, limbs):
+    """(name, note, arguments, (bytes, operations)) of every shape the VM
+    cycle gives kernels 9-11 at `par`, random inputs of those shapes."""
+    from fhe_ram_tpu_torch.ops import ntt_cuda
+    from fhe_ram_tpu_torch.vm import arithmetic
+
+    n, P, C2, L = par.n, par.num_primes, par.rank + 1, par.limbs_ct
+    poly_b, bits = 4 * n, 8 * par.word_size
+    Td, Lk = arithmetic._vm_trunc(par, bits)[0]
+    T, M = C2 * Td, C2 * Lk
+
+    def keys_of(lead, T_, M_):
+        k = ntt_cuda.ntt_fwd_cuda(vctx, limbs(tuple(lead) + (T_, M_, n)))
+        return k.permute(tuple(range(1, len(lead) + 1)) + (0,)
+                         + tuple(range(len(lead) + 1, len(lead) + 4))).contiguous()
+
+    out = []
+    for kind, table in (("fused_bitwise", arithmetic._BITWISE_TABLES),
+                        ("fused_dp_chain", arithmetic._DP_SPECS)):
+        ops = [op for op in arithmetic.RVI32_OPS if op in table]
+        _, groups = arithmetic._sources(ops, None, None)
+        G, NG = len(ops), len(groups)
+        keys = keys_of((bits, NG + 1), T, M)
+        key_bytes = poly_b * bits * (NG + 1) * P * T * M
+        if kind == "fused_bitwise":
+            args = (limbs((G, 2, C2, L, n)), limbs((G, 2, C2, L, n)), keys, groups)
+            work = (key_bytes + poly_b * (4 * G + bits * G) * C2 * L,
+                    fold_ops(bits * 3 * G, T, M, n))
+        else:
+            tabs = tuple(arithmetic._DP_SPECS[op][:3] for op in ops)
+            args = (limbs((G, 2, C2, L, n)), keys, limbs((bits, C2, L, n)), tabs,
+                    groups)
+            work = (key_bytes + poly_b * (4 * G + bits) * C2 * L,
+                    bits * fold_ops(6 * G, T, M, n))
+        out.append((kind, vm_note(kind, *args), args, work))
+    # kernel 10: select_rd (the op id's 5 bits, truncated), select_store
+    # (offset << 2 then op, full gadget), the pointer conversion's two
+    # address digits (D*C rows of Lg limbs, the GGSW-apply bits)
+    log_ops = (len(arithmetic.RVI32_OPS) - 1).bit_length()
+    D, C = par.dnum_ct, par.rank + 1
+    brots = [(1, L, T, M, [-(1 << k) for k in range(log_ops)]),
+             (1, L, C * par.dnum_ct, C2 * par.limbs_ggsw, [-4, -8, -1, -2])]
+    for width in [b for row in par.base2d().rows for b in row.bases]:
+        brots.append((D * C, par.limbs_ggsw, C * par.dnum_ggsw,
+                      C2 * par.limbs_evk_ggsw, [-(1 << j) for j in range(width)]))
+    for B, Lc, T_, M_, amounts in brots:
+        S = len(amounts)
+        args = (limbs((B, C2, Lc, n)), keys_of((S,), T_, M_), amounts)
+        out.append(("fused_blind_rotate", vm_note("fused_blind_rotate", *args),
+                    args, (poly_b * (2 * B * C2 * Lc + S * P * T_ * M_),
+                           S * fold_ops(B, T_, M_, n))))
+    return out
+
+
+def vm_call(ctx, name, args):
+    from fhe_ram_tpu_torch.ops import ntt_cuda
+
+    fn = getattr(ntt_cuda, name)
+    return lambda: fn(ctx, *args)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -126,9 +255,10 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (a first look at new kernels)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one more read, write cycle, batched read and "
-                         "batched read-modify-write with torch.profiler: device "
-                         "time by kernel and the device's idle share")
+                    help="trace one more read, write cycle, batched read, "
+                         "batched read-modify-write and VM cycle with "
+                         "torch.profiler: device time by kernel and the "
+                         "device's idle share")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print what ptxas says of each kernel (registers, spills)")
     args = ap.parse_args()
@@ -139,6 +269,7 @@ def main():
         sys.exit(2)
 
     from fhe_ram_tpu_torch.params import PARAMS_2_18_TURBO_READOPT as PAR
+    from fhe_ram_tpu_torch.params import PARAMS_2_18_READOPT as VPAR
     from fhe_ram_tpu_torch.ops import ntt_cuda
     from fhe_ram_tpu_torch.ops.ntt import get_ntt_context
     from fhe_ram_tpu_torch.core import glwe, keys as keys_mod, rng
@@ -462,6 +593,16 @@ def main():
               plain_reps=1,
               per_level_fn=lambda: merge_levels(cts_p, keys_pt[5 - lv_:]))
     del cts_p
+
+    # kernels 9-11: every shape the VM cycle gives them at PARAMS_2_18_READOPT
+    # (vm_shapes); the cycle's phase below records what it really launches
+    # and fails on a shape not checked here
+    vctx = get_ntt_context(VPAR.n, VPAR.primes)
+    for name, shape, inputs, work in vm_shapes(VPAR, vctx, limbs):
+        fn = vm_call(vctx, name, inputs)
+        check(name, shape, fn, plain_reps=1, work=work)
+        del fn
+    del inputs
     emit({"phase": "kernel_checks", "ok": True, "tolerance": 0, "checks": checks})
     if args.kernels_only:
         return
@@ -832,13 +973,6 @@ def main():
     if not (torch.equal(out_t, out) and torch.equal(new_t.data, st1.data)
             and torch.equal(out_l, out) and torch.equal(new_l.data, st1.data)):
         fail("the cycle with tree_kernels=True differs from the default's")
-    deep_all = []
-    for _ in range(4):
-        got_d, ms = timed(lambda: server.read_batch(st1, coords_b, pack_deep=4))
-        deep_all.append(ms)
-    flat_all = [timed(lambda: server.read_batch(st1, coords_b))[1] for _ in range(4)]
-    if not torch.equal(got_d, server.read_batch(st1, coords_b)):
-        fail("read_batch(pack_deep=4) differs from the default schedule")
     emit({"phase": "tree_kernels_cycle", "ok": True,
           "equal_to_default": True,
           "rpw_ms": statistics.median(cyc["rpw"]),
@@ -846,12 +980,186 @@ def main():
           "tree_rpw_ms": statistics.median(cyc["tree_rpw"]),
           "tree_write_ms": statistics.median(cyc["tree_write"]),
           "ms_all": cyc,
-          "launches": {"read_prepare_write": l_trpw, "write": l_twr},
-          "read_batch_pack_deep_4_ms": statistics.median(deep_all),
-          "read_batch_pack_deep_4_ms_all": deep_all,
-          "read_batch_default_ms": statistics.median(flat_all),
-          "read_batch_default_ms_all": flat_all, "batch": BATCH})
-    del got_d, out_l, pend_l, new_l, out_t, pend_t, new_t
+          "launches": {"read_prepare_write": l_trpw, "write": l_twr}})
+    del out_l, pend_l, new_l, out_t, pend_t, new_t
+
+    # ---- the VM instruction cycle at PARAMS_2_18_READOPT -----------------------
+    from fhe_ram_tpu_torch.vm import arithmetic, conversion, fheuint, store
+    from fhe_ram_tpu_torch.vm.cycle import vm_cycle
+
+    VW, vbits = VPAR.word_size, 8 * VPAR.word_size
+    t0 = time.time()
+    vsrc = rng.Source(args.seed + 7)
+    vsk = rng.ternary_secret(vsrc.split(), VPAR.rank, VPAR.n, VPAR.xs_density,
+                              device=dev)
+    vs_ntt = glwe.secret_prepare(vctx, vsk)
+    vkeys = keys_mod.prepare(VPAR, keys_mod.keygen(VPAR, vsk, vsrc))
+    vdata = np.random.default_rng(args.seed + 8).integers(
+        0, 256, size=VPAR.max_addr * VW).astype(np.uint8)
+    vram = ram_mod.encrypt_ram(VPAR, vctx, vs_ntt, vdata, vsrc)
+    vserver = ram_mod.FheRam(VPAR, vkeys, device=dev)
+    ops = arithmetic.RVI32_OPS
+    log_ops = (len(ops) - 1).bit_length()
+    vpicks = [int(a) for a in np.random.default_rng(args.seed + 9).choice(
+        VPAR.max_addr, size=len(VM_PLAN) + 2, replace=False)]
+    vrnd = np.random.default_rng(args.seed + 10)
+
+    def u32(idx, plain):
+        return int.from_bytes(bytes(plain[idx * VW: (idx + 1) * VW]), "little")
+
+    def operands(op, sop, offset, ptr, plain):
+        """The client's operands of one cycle and what it must give."""
+        a, b, imm = (int(x) for x in vrnd.integers(0, 1 << 32, size=3))
+        loaded = u32(ptr, plain)
+        enc = dict(
+            rs1p=fheuint.encrypt_prepared(VPAR, vctx, vs_ntt, a, vsrc, vbits),
+            rs2p=fheuint.encrypt_prepared(VPAR, vctx, vs_ntt, b, vsrc, vbits),
+            immp=fheuint.encrypt_prepared(VPAR, vctx, vs_ntt, imm, vsrc, vbits),
+            op_id_prep=fheuint.encrypt_prepared(VPAR, vctx, vs_ntt, ops.index(op),
+                                                vsrc, log_ops),
+            rs2_word=fheuint.encrypt_word(VPAR, vctx, vs_ntt, b, vsrc, vbits),
+            loaded_word=fheuint.encrypt_word(VPAR, vctx, vs_ntt, loaded, vsrc, vbits),
+            offset_prep=fheuint.encrypt_prepared(VPAR, vctx, vs_ntt, offset, vsrc, 2),
+            storeop_prep=fheuint.encrypt_prepared(
+                VPAR, vctx, vs_ntt, store.STORE_OPS.index(sop), vsrc, 2),
+            ptr_prep=fheuint.encrypt_prepared(
+                VPAR, vctx, vs_ntt, ptr, vsrc, VPAR.max_addr.bit_length() - 1,
+                dnum=VPAR.dnum_ggsw, limbs=VPAR.limbs_evk_ggsw))
+        return enc, alu_model(op, a, b, imm), store_model(sop, offset, loaded, b)
+
+    def vdecode(out, idx, what, plain):
+        """Every byte of the RAM word read at idx equals `plain`'s, under the
+        noise bound; returns the worst log2 noise."""
+        if tuple(out.shape) != (VW, C, VPAR.limbs_ct, VPAR.n):
+            fail(f"{what} at {idx}: output {tuple(out.shape)}")
+        worst = -1e9
+        ph = glwe.phase(VPAR, vctx, vs_ntt, out)
+        for i in range(VW):
+            want = glwe.cast_u8_signed(int(plain[idx * VW + i]), VPAR.k_pt)
+            val, noise = glwe.decode_coeff0(VPAR, ph[i], want)
+            if int(val) != want or not noise < -(VPAR.k_pt + 1):
+                fail(f"{what} at {idx}, byte {i}: decoded {int(val)} (noise "
+                     f"2^{float(noise):.2f}), stored {want}")
+            worst = max(worst, float(noise))
+        return worst
+
+    plan = [(op, sop, off, vpicks[k]) for k, (op, sop, off) in enumerate(VM_PLAN)]
+    quiet_v = vpicks[len(VM_PLAN):]
+    expected = [operands(op, sop, off, ptr, vdata) for op, sop, off, ptr in plan]
+    torch.cuda.synchronize()
+    vm_setup_s = time.time() - t0
+    seen = {k: set() for k in VM_KERNELS}
+    real = {k: getattr(ntt_cuda, k) for k in VM_KERNELS}
+
+    def recording(name):
+        def call(ctx_, *a):
+            seen[name].add(vm_note(name, *a))
+            return real[name](ctx_, *a)
+        return call
+
+    ntt_cuda.reset_launches()
+    vstate, vm_ms, per_cycle, vm_rd, vm_fetched = vram, [], [], [], []
+    vm_inputs = []
+    for k, (enc, _, _) in enumerate(expected):
+        if k == 0:
+            for name in VM_KERNELS:
+                setattr(ntt_cuda, name, recording(name))
+        try:
+            (rd, fetched, new_vstate), ms, l_c = launches_of(
+                lambda: vm_cycle(VPAR, vctx, vkeys, data=vstate, **enc))
+        finally:
+            for name in VM_KERNELS:
+                setattr(ntt_cuda, name, real[name])
+        expect_launches(f"vm_cycle {k}", l_c, **VM_CYCLE_LAUNCHES)
+        vm_inputs.append((vstate, enc))
+        vm_ms.append(ms)
+        per_cycle.append(l_c)
+        vm_rd.append(rd)
+        vm_fetched.append(fetched)
+        vstate = new_vstate
+    vm_launches = dict(ntt_cuda.LAUNCHES)
+    for name in VM_KERNELS + ("fused_external_fold_batched", "fused_trace",
+                              "fused_external_fold", "fused_split"):
+        if vm_launches[name] == 0:
+            fail(f"kernel {name} was not launched on the VM cycle's path")
+    for name, notes in seen.items():
+        checked = {r["shape"] for r in checks.get(name, [])}
+        if not notes or not notes <= checked:
+            fail(f"{name}: the cycle launched shapes {sorted(notes - checked)} "
+                 "that no kernel check held against the plain version")
+    # decode (outside the counted window): rd, the fetched word, and after
+    # all cycles the stored words and two addresses no cycle touched
+    worst_rd, worst_ram = -1e9, -1e9
+    written = vdata.copy()
+    for k, ((op, sop, off, ptr), (_, rd_want, st_want)) in enumerate(
+            zip(plan, expected)):
+        got = fheuint.decrypt_word(VPAR, vctx, vs_ntt, vm_rd[k], vbits)
+        if got != rd_want:
+            fail(f"vm_cycle {k} ({op}): rd decodes to {got:#x}, expected {rd_want:#x}")
+        worst_rd = max(worst_rd, fheuint.word_noise_log2(VPAR, vctx, vs_ntt, vm_rd[k],
+                                                         rd_want, vbits))
+        worst_ram = max(worst_ram, vdecode(vm_fetched[k], ptr, "vm_cycle fetch",
+                                           written))
+        written[ptr * VW: (ptr + 1) * VW] = list(st_want.to_bytes(VW, "little"))
+    final = vserver.init_state(vstate)
+
+    def vread(idx):
+        return vserver.read(final, address_mod.prepare(
+            vctx, address_mod.encrypt(VPAR, vctx, vs_ntt, idx, vsrc)))
+
+    for _, _, _, ptr in plan:
+        worst_ram = max(worst_ram, vdecode(vread(ptr), ptr, "store read-back", written))
+    for idx in quiet_v:
+        worst_ram = max(worst_ram, vdecode(vread(idx), idx,
+                                           "read of an address no cycle stored to",
+                                           written))
+    if not max(worst_rd, worst_ram) < -(VPAR.k_pt + 1):
+        fail(f"vm_cycle: worst noise 2^{max(worst_rd, worst_ram):.2f}")
+    # the parts, timed apart on the last cycle's inputs (three calls each)
+    st_l, enc_l = vm_inputs[-1]
+    atk_v = vkeys.atk_glwe
+    packed = arithmetic.eval_ops(VPAR, vctx, enc_l["rs1p"], enc_l["rs2p"],
+                                 enc_l["immp"], atk_v, ops, vbits)
+    parts = {
+        "eval_ops_ms": lambda: arithmetic.eval_ops(
+            VPAR, vctx, enc_l["rs1p"], enc_l["rs2p"], enc_l["immp"], atk_v, ops, vbits),
+        "select_rd_ms": lambda: arithmetic.select_rd(
+            VPAR, vctx, packed, enc_l["op_id_prep"], len(ops), atk_v, vbits),
+        "select_store_ms": lambda: store.select_store(
+            VPAR, vctx, enc_l["rs2_word"], enc_l["loaded_word"], enc_l["offset_prep"],
+            enc_l["storeop_prep"], atk_v, vbits),
+        "fheuint_to_address_ms": lambda: conversion.fheuint_to_address(
+            VPAR, vctx, enc_l["ptr_prep"]),
+    }
+    part_ms = {k: statistics.median([timed(f)[1] for _ in range(3)])
+               for k, f in parts.items()}
+    del packed
+    emit({"phase": "vm_cycle", "ok": True, "preset": "PARAMS_2_18_READOPT",
+          "max_addr": VPAR.max_addr, "word_bits": vbits, "ops": len(ops),
+          "cycles": [{"op": op, "store": sop, "offset": off, "pointer": ptr}
+                     for op, sop, off, ptr in plan],
+          "unchanged_addresses": quiet_v,
+          "vm_cycle_ms": statistics.median(vm_ms), "vm_cycle_ms_all": vm_ms,
+          **part_ms,
+          "worst_noise_log2": max(worst_rd, worst_ram),
+          "worst_rd_noise_log2": worst_rd, "worst_ram_noise_log2": worst_ram,
+          "noise_bound_log2": -(VPAR.k_pt + 1),
+          "launches_per_cycle": per_cycle[0],
+          "vm_kernel_shapes": {k: sorted(v) for k, v in seen.items()},
+          "setup_seconds": round(vm_setup_s, 2)})
+
+    # ---- the last cycle again through the plain versions, on the card ------
+    with ntt_cuda.plain_versions():
+        (p_rd, p_fetched, p_state), plain_vm_ms = timed(
+            lambda: vm_cycle(VPAR, vctx, vkeys, data=st_l, **enc_l))
+    if not (torch.equal(p_rd, vm_rd[-1]) and torch.equal(p_fetched, vm_fetched[-1])
+            and torch.equal(p_state, vstate)):
+        fail("vm_cycle: kernels and plain versions disagree")
+    emit({"phase": "vm_cycle_vs_plain", "ok": True, "pointer": plan[-1][3],
+          "compared": "rd, fetched and all of the new RAM "
+                      f"int32{list(vstate.shape)}",
+          "plain_vm_cycle_ms": plain_vm_ms})
+    del p_rd, p_fetched, p_state, vm_inputs, final
 
     # ---- optional: where the time of one call of each path goes -------------
     if args.profile:
@@ -902,19 +1210,26 @@ def main():
         traced("write, tree kernels",
                lambda: tree_server.write(pend[0], w_ct, addr),
                statistics.median(cyc["tree_write"]))
+        traced("vm_cycle", lambda: vm_cycle(VPAR, vctx, vkeys, data=st_l, **enc_l),
+               statistics.median(vm_ms))
 
     # ---- the kernels' line --------------------------------------------------
-    # launches over the four paths, each counted from 0 just before it was
+    # launches over the five paths, each counted from 0 just before it was
     # driven to just after (comparisons and read-backs are outside)
     total_launches = {k: path_launches[k] + rmw_launches[k] + batch_launches[k]
-                      + rmw_batch_launches[k] for k in path_launches}
+                      + rmw_batch_launches[k] + vm_launches[k] for k in path_launches}
     for k, v in total_launches.items():
         if v == 0:
             fail(f"kernel {k} was launched on none of the paths")
 
-    def entry(name, source, replaces, shape_idx, bytes_moved, ops):
+    def entry(name, source, replaces, shape_idx, bytes_moved=None, ops=None):
+        """The kernel's line at one of its checked shapes; the bound from
+        the work given here, else from the check's own."""
         rec = checks[name][shape_idx]
-        b_ms, b_by = bound(bytes_moved, ops)
+        if bytes_moved is None:
+            b_ms, b_by = rec["bound_ms"], rec["bound_by"]
+        else:
+            b_ms, b_by = bound(bytes_moved, ops)
         out = {"name": name, "route": "cuda",
                "source": f"fhe_ram_tpu_torch/csrc/{source}",
                "replaces": f"fhe_ram_tpu/ops/ntt_pallas.py:{replaces}",
@@ -922,7 +1237,8 @@ def main():
                "launches_by_path": {"read": path_launches[name],
                                     "rmw": rmw_launches[name],
                                     "read_batch": batch_launches[name],
-                                    "rmw_batch": rmw_batch_launches[name]},
+                                    "rmw_batch": rmw_batch_launches[name],
+                                    "vm_cycle": vm_launches[name]},
                "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -969,7 +1285,17 @@ def main():
               poly_b * (nbr * C * L * (M_PT + 1) + 5 * P * T_kf * M_kf),
               sum(fold_ops((M_PT >> (s_ + 1)) * nbr, T_kf, M_kf, n)
                   for s_ in range(5))),
+        # the VM's kernels at their cycle shapes (bounds as vm_shapes prices
+        # them): the bitwise group, select_rd's rotation, the carry chain
+        entry("fused_bitwise", "bitwise.cu", 2221, 0),
+        entry("fused_blind_rotate", "blind_rotate.cu", 2320, 0),
+        entry("fused_dp_chain", "dp_chain.cu", 2377, 0),
     ]
+    for k in kernels:
+        if k["name"] in VM_KERNELS:
+            k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",
+                                                "bound_ms", "bound_by")}
+                              for r in checks[k["name"]]]
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 2)})
     print(card, flush=True)

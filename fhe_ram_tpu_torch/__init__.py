@@ -1,7 +1,7 @@
 """fhe_ram_tpu_torch -- the encrypted-RAM (FHE-RAM) framework on PyTorch
 and CUDA.
 
-Same layout as the JAX package it was ported from (ops/ core/ ram/ utils/), so
+Same layout as the JAX package it was ported from (ops/ core/ ram/ vm/ utils/), so
 a module here is the counterpart of the module of the same name there.
 Plain tensor code is PyTorch; the hot kernels are hand-written CUDA
 (csrc/, built at first use by ops/ntt_cuda.py).  Entry points take an

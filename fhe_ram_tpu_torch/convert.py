@@ -3,12 +3,17 @@
 `from_reference` takes what that client produced, as numpy arrays (or
 anything `np.asarray` accepts) -- the secret, the coefficient-domain
 evaluation keys, the encrypted RAM, an address's coordinates, an
-encrypted write word or a stack of them -- and returns this package's
-objects on the asked device.  This package then
+encrypted write word or a stack of them, the VM's operands -- and returns
+this package's objects on the asked device.  This package then
 prepares keys and addresses with its own `prepare`: spectral forms are
-never carried across, because each package defines its own spectrum
-order.  With it, both packages compute the same read on the same
-ciphertexts.  `stack_addresses` stacks addresses, prepared or in the
+not carried across, because each package defines its own spectrum
+order.  The one exception is the VM's prepared bits, which the JAX
+client hands out only in spectral form (`fheuint.encrypt_prepared`): its
+default transform (the butterfly one, every CPU run) has this package's
+spectrum order with balanced residues, so they are carried across reduced
+to canonical residues; spectra of its TPU kernels are not of that order
+and must not be passed.  With it, both packages compute the same read and
+the same VM cycle on the same ciphertexts.  `stack_addresses` stacks addresses, prepared or in the
 coefficient domain, into the batch layout of the batched read and the
 batched read-modify-write.
 """
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from .core.keys import EvaluationKeys
+from .params import DEFAULT_PRIMES
 from .ops.ntt_cuda import require_device
 from .ram.address import Address
 
@@ -36,6 +42,7 @@ class ReferenceState:
     address: Address | None
     word: torch.Tensor | None = None  # int32[W, C, L, N]
     words: torch.Tensor | None = None  # int32[B, W, C, L, N]
+    vm: dict | None = None             # name -> word [C, L, N] or prepared bits
 
 
 def _tensor(x, device):
@@ -46,14 +53,29 @@ def _field(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
+def _prepared_bits(x, device, primes):
+    """The JAX client's prepared bits [P, W, D, C, C2, Lg, N] (its default
+    transform's spectra) as this package's canonical residues."""
+    x = np.asarray(x, dtype=np.int64)
+    if x.ndim != 7 or x.shape[0] != len(primes):
+        raise ValueError(f"prepared bits [P, W, D, C, C2, Lg, N] expected, "
+                         f"got {x.shape}")
+    p = np.asarray(primes, dtype=np.int64).reshape((-1,) + (1,) * 6)
+    return _tensor(np.mod(x, p).astype(np.int32), device)
+
+
 def from_reference(sk=None, keys=None, ram=None, address=None, word=None,
-                   words=None, device="cuda") -> ReferenceState:
+                   words=None, vm=None, device="cuda") -> ReferenceState:
     """sk: int32[rank, N]; keys: an object or dict with `atk_glwe`
     {g: [D, rank, C2, L, N]}, `atk_ggsw` {g: ...} and `tsk`; ram:
     int32[W, R, C, L, N]; address: an object with `coordinates` or the
     tuple of coordinate arrays itself; word: an encrypted write word
     int32[W, C, L, N]; words: a sequence of such words (or one array
-    int32[B, W, C, L, N]), stacked for FheRam.rmw_batch."""
+    int32[B, W, C, L, N]), stacked for FheRam.rmw_batch; vm: the VM
+    operands by name, each a word-form GLWE [C, L, N] (`encrypt_word`) or
+    prepared bits [P, W, D, C, C2, Lg, N] (`encrypt_prepared`, the
+    pointer's too) of the JAX client's default transform over the presets'
+    primes."""
     device = require_device(device)
     out_keys = None
     if keys is not None:
@@ -74,7 +96,11 @@ def from_reference(sk=None, keys=None, ram=None, address=None, word=None,
         address=out_addr,
         word=None if word is None else _tensor(word, device),
         words=None if words is None else _tensor(
-            np.stack([np.asarray(w) for w in words]), device))
+            np.stack([np.asarray(w) for w in words]), device),
+        vm=None if vm is None else {
+            name: (_prepared_bits(x, device, DEFAULT_PRIMES) if np.ndim(x) == 7
+                   else _tensor(x, device))
+            for name, x in vm.items()})
 
 
 def stack_addresses(addrs) -> tuple:

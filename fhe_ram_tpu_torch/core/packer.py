@@ -101,10 +101,9 @@ def pack_tree(params: Params, ctx: NTTContext, cts, auto_keys_ntt: dict,
     t = dilate * 2^ll and galois g = N/(dilate*2^ll) + 1.  dilate=1,
     prescale=True reproduces pack()'s math.
 
-    Used by a row-sharded pack (a shard holds the global leaves congruent
-    to its index mod the shard count, runs pack_tree(dilate=shards), and
-    the gathered roots finish with pack_tree(dilate=1, prescale=False))
-    and by the hybrid-depth batched read (ram.read_batch_impl).
+    For a row-sharded pack (a shard holds the global leaves congruent to
+    its index mod the shard count, runs pack_tree(dilate=shards), and the
+    gathered roots finish with pack_tree(dilate=1, prescale=False)).
     prescale=True scales by the FULL global leaf count (M * dilate), so
     that the tail merges stay division-free."""
     M = cts.shape[0]
@@ -134,8 +133,8 @@ def pack_prefix(params: Params, ctx: NTTContext, cts, auto_keys_ntt: dict,
     """The SHALLOW levels of pack(): merge cts[M, ...] down to stop_nodes
     surviving nodes and return them [stop_nodes, ..., C, L, N] --
     prescaled by the FULL 1/M up-front, so the caller finishes with
-    pack_tree(dilate=1, prescale=False) (possibly folding other batch
-    members into the row axis first: the hybrid-depth batched read)."""
+    pack_tree(dilate=1, prescale=False), possibly with other batch
+    members folded into the row axis first."""
     M = cts.shape[0]
     n = params.n
     assert M & (M - 1) == 0 and stop_nodes & (stop_nodes - 1) == 0

@@ -518,6 +518,64 @@ __device__ __forceinline__ void split_row(Row& row, const int* x, int* c0,
   }
 }
 
+// Glue of one CMux on a row: out = normalize(lo + (hi - lo) x GGSW), the
+// digits the top Td limbs of hi - lo (|limb| <= 2^17: no normalize pass),
+// the base lo.  hi and lo are [C2, L, n]; read through L2, since the VM
+// chain kernels read what another block of the launch wrote.
+struct CmuxGlue : CoefficientDigits {
+  const int* hi;
+  const int* lo;
+  int n, L, Td;
+  __device__ __forceinline__ int digit(int t, int i) const {
+    const int at = ((t / Td) * L + t % Td) * n + i;
+    return __ldcg(hi + at) - __ldcg(lo + at);
+  }
+  __device__ __forceinline__ int base(int c2, int l, int i) const {
+    return __ldcg(lo + (c2 * L + l) * n + i);
+  }
+};
+
+// Glue of one blind-rotation step on a row ct [C2, L, n]: the CMux of
+// X^rot * ct against ct, so hi = X^rot ct is index arithmetic on the loads
+// (a sign flip where the index wraps) and never written anywhere.
+struct RotateCmuxGlue : CoefficientDigits {
+  const int* ct;
+  int n, L, Td, rot;  // rot in [0, 2n)
+  __device__ __forceinline__ int rotated(const int* poly, int j) const {
+    const int kk = rot & (n - 1);
+    const int v = j < kk ? -__ldcg(poly + n - kk + j) : __ldcg(poly + j - kk);
+    return rot >= n ? -v : v;
+  }
+  __device__ __forceinline__ int digit(int t, int i) const {
+    const int* poly = ct + ((t / Td) * L + t % Td) * n;
+    return rotated(poly, i) - __ldcg(poly + i);
+  }
+  __device__ __forceinline__ int base(int c2, int l, int i) const {
+    return __ldcg(ct + (c2 * L + l) * n + i);
+  }
+};
+
+// ---- the VM chain kernels (dp_chain.cu, bitwise.cu) -------------------------
+// A cooperative launch dealt into groups of `slots` x cs consecutive blocks.
+// A group walks units (an op of the carry chain, a bit of the bitwise
+// group) g, g + groups, ...; slot r of the group folds the r-th row of a
+// phase of its unit with the cs blocks of the slot (`row`), and `unit` is
+// a barrier over all blocks of the group between two phases.  No barrier
+// spans two groups: units are independent.  Counters in `arrived`, zero at
+// launch: slots + 1 a group.
+struct UnitSlot {
+  int groups, group, slot;
+  GridRow row, unit;
+  __device__ __forceinline__ UnitSlot(int slots, int cs, unsigned* arrived)
+      : groups((int)gridDim.x / (slots * cs)),
+        group((int)blockIdx.x / (slots * cs)),
+        slot(((int)blockIdx.x / cs) % slots),
+        row(cs, (int)blockIdx.x % cs,
+            arrived + (blockIdx.x / (slots * cs)) * (slots + 1) + ((blockIdx.x / cs) % slots)),
+        unit(slots * cs, (int)blockIdx.x % (slots * cs),
+             arrived + (blockIdx.x / (slots * cs)) * (slots + 1) + slots) {}
+};
+
 // Launch `kernel` with `rows` groups of sh.cs blocks (one group a row, or
 // fewer groups that each walk over several rows); a group of more than one
 // block is a thread block cluster.

@@ -2,7 +2,7 @@
 their wrappers, their launch counters, and beside each its plain PyTorch
 version.
 
-Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Eight kernels (csrc/):
+Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Eleven kernels (csrc/):
 
   ntt_fwd_cuda / ntt_inv_cuda   the batched negacyclic NTT     (ntt.cu)
   fused_external_fold           external product / keyswitch   (fold.cu)
@@ -12,6 +12,9 @@ Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Eight kernels (csrc/):
   fused_split                   one split-tree level           (split.cu)
   fused_split_tree              all split-tree levels          (split_tree.cu)
   fused_pack_tree               a whole pack tree              (pack_tree.cu)
+  fused_blind_rotate            a blind-rotation CMux chain    (blind_rotate.cu)
+  fused_dp_chain                the VM's carry-DP chain        (dp_chain.cu)
+  fused_bitwise                 the VM's bitwise group         (bitwise.cu)
 
 Build: one `nvcc -shared` per source for sm_90a, all started together,
 into `<package>/build/` at first use; plain C entry points bound with
@@ -50,10 +53,11 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 SOURCES = ("ntt", "fold", "trace", "pack_merge", "split", "split_tree",
-           "pack_tree")
+           "pack_tree", "blind_rotate", "dp_chain", "bitwise")
 
 _MAX_L = 8        # FHE_MAX_L of csrc/fhe_core.cuh
 _MAX_STEPS = 16   # FHE_MAX_STEPS: steps of a trace launch, levels of a tree launch
+_MAX_OPS = 16     # FHE_MAX_OPS of csrc/dp_chain.cu, bitwise.cu: ops of a VM group
 _MAX_SMEM = 232448  # bytes of shared memory one block can use on sm_90
 # Rows up to which a launch gives each row a cluster of 6 resp. 3 blocks
 # (timed on an H100 with tools/time_fold_chunks.py: at T = 2, M = 6 a
@@ -70,7 +74,8 @@ _MAX_ROW_GROUPS = 1024
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "fused_external_fold": 0,
             "fused_external_fold_batched": 0, "fused_trace": 0,
             "fused_pack_merge": 0, "fused_split": 0, "fused_split_tree": 0,
-            "fused_pack_tree": 0}
+            "fused_pack_tree": 0, "fused_blind_rotate": 0, "fused_dp_chain": 0,
+            "fused_bitwise": 0}
 
 _force_plain = False
 _libs = None
@@ -124,6 +129,19 @@ class _TreeLevels(ctypes.Structure):
     _fields_ = [("count", ctypes.c_int), ("cs", ctypes.c_int * _MAX_STEPS),
                 ("ginv", ctypes.c_int * _MAX_STEPS),
                 ("rot", ctypes.c_int * _MAX_STEPS)]
+
+
+class _RotSteps(ctypes.Structure):
+    _fields_ = [("count", ctypes.c_int), ("rot", ctypes.c_int * _MAX_STEPS)]
+
+
+class _DpTables(ctypes.Structure):
+    _fields_ = [("count", ctypes.c_int), ("group", ctypes.c_int * _MAX_OPS),
+                ("leaf", ctypes.c_ubyte * (_MAX_OPS * 2 * 4))]
+
+
+class _OpGroups(ctypes.Structure):
+    _fields_ = [("count", ctypes.c_int), ("group", ctypes.c_int * _MAX_OPS)]
 
 
 def _find_nvcc() -> str:
@@ -186,6 +204,16 @@ def build_kernels(verbose: bool = False):
         ("pack_tree", "fhe_pack_tree"): [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                          _TreeLevels, _FoldShape, _Consts,
                                          _Tables, vp],
+        ("blind_rotate", "fhe_blind_rotate"): [vp, vp, vp, vp, vp, ci, ci,
+                                               _RotSteps, ci, _FoldShape,
+                                               _Consts, _Tables, vp],
+        ("dp_chain", "fhe_dp_chain_blocks"): [_FoldShape, ci, cip],
+        ("dp_chain", "fhe_dp_chain"): [vp, vp, vp, vp, vp, vp, vp, ci, _DpTables,
+                                       ci, ci, ci, _FoldShape, _Consts, _Tables,
+                                       vp],
+        ("bitwise", "fhe_bitwise_blocks"): [_FoldShape, ci, cip],
+        ("bitwise", "fhe_bitwise"): [vp, vp, vp, vp, vp, vp, vp, ci, _OpGroups,
+                                     ci, ci, ci, _FoldShape, _Consts, _Tables, vp],
     }
     for (lib, fn), argtypes in sigs.items():
         f = getattr(libs[lib], fn)
@@ -261,7 +289,10 @@ def _require(t, name: str, shape=None):
 
 def _use_kernel(ctx: NTTContext, t) -> bool:
     """True: launch the kernel.  False: the plain version (CPU tensor, or
-    plain_versions()).  A CUDA tensor the kernels do not take raises."""
+    plain_versions()).  A CUDA tensor the kernels do not take raises, and
+    so does a tensor that is not int32 on either route."""
+    if t.dtype != I32:
+        raise TypeError(f"int32 expected, got {t.dtype}")
     if _force_plain or not t.is_cuda:
         return False
     if ctx.n != 4096:
@@ -686,17 +717,14 @@ def fused_split(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
 _resident = {}   # (source, T, mc, log_n, device index) -> co-resident blocks
 
 
-def _tree_launch_args(source: str, level_rows, gal_els, rots, T: int, M: int,
-                      C2: int, L: int, n: int, device):
-    """What a tree launch needs beside its tensors: the kernels' shape
-    argument (one for the whole launch: shared memory and `mc` cannot
-    change between levels), the per-level table (blocks that share a row,
-    chosen by the level's rows as `_fold_shape` chooses them for a
-    per-level launch; g^-1; the rotation), and the grid: as many blocks as
-    the widest level can use, at most what the card holds at once (a
-    cooperative launch takes no more)."""
+def _cooperative_shape(source: str, T: int, M: int, C2: int, L: int, sign: int,
+                       n: int, device):
+    """The shape argument of a cooperative launch of `source` (cs = 1: the
+    kernel deals its blocks itself; `mc` fixed for the whole launch) and the
+    most blocks the card holds at once with it: the largest grid such a
+    launch may have."""
     mc = max(1, min(3, M, _MAX_SMEM // (4 * n) - T))
-    sh = _FoldShape(T, M, M // C2, L, C2, -1, mc, 1)
+    sh = _FoldShape(T, M, M // C2, L, C2, -1 if sign < 0 else 1, mc, 1)
     log_n = n.bit_length() - 1
     key = (source, T, mc, log_n, torch.device(device).index)
     if key not in _resident:
@@ -709,6 +737,19 @@ def _tree_launch_args(source: str, level_rows, gal_els, rots, T: int, M: int,
             raise RuntimeError(f"{source}: the device holds {blocks.value} "
                                "blocks at once, 6 are needed")
         _resident[key] = blocks.value
+    return sh, _resident[key]
+
+
+def _tree_launch_args(source: str, level_rows, gal_els, rots, T: int, M: int,
+                      C2: int, L: int, n: int, device):
+    """What a tree launch needs beside its tensors: the kernels' shape
+    argument (one for the whole launch: shared memory and `mc` cannot
+    change between levels), the per-level table (blocks that share a row,
+    chosen by the level's rows as `_fold_shape` chooses them for a
+    per-level launch; g^-1; the rotation), and the grid: as many blocks as
+    the widest level can use, at most what the card holds at once (a
+    cooperative launch takes no more)."""
+    sh, resident = _cooperative_shape(source, T, M, C2, L, -1, n, device)
     lv = _TreeLevels()
     lv.count = len(level_rows)
     want = 0
@@ -717,7 +758,7 @@ def _tree_launch_args(source: str, level_rows, gal_els, rots, T: int, M: int,
         lv.ginv[l] = poly.auto_inverse(n, gal_els[l])
         lv.rot[l] = rots[l] % (2 * n)
         want = max(want, rows * lv.cs[l])
-    return sh, lv, min(want, _resident[key])
+    return sh, lv, min(want, resident)
 
 
 def fused_split_tree_plain(ctx: NTTContext, ct, gal_els, keys_stacked):
@@ -838,4 +879,285 @@ def fused_pack_tree(ctx: NTTContext, cts, keys_stacked):
             blocks, lv, sh, _consts(ctx), _tables(ctx, cts.device), _stream())
     _check(err, "fused_pack_tree")
     LAUNCHES["fused_pack_tree"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# kernels 9, 10 and 11: the VM's CMux chains
+# --------------------------------------------------------------------------
+
+def _chain_keys(keys, lead: int, C2: int, L: int, n: int, ctx: NTTContext):
+    """Check stacked chain keys [..., P, T, M, N] (`lead` leading axes)
+    against rows of C2 components and L limbs; returns (Td, T, M)."""
+    shape = tuple(keys.shape)
+    if len(shape) != lead + 4 or shape[-1] != n or n != ctx.n:
+        raise ValueError(f"keys {shape} do not fit rows of [{C2}, {L}, {n}]")
+    P, T, M = shape[lead:lead + 3]
+    if P != len(ctx.primes) or T % C2 or M % C2 or not 1 <= T // C2 <= L:
+        raise ValueError(f"keys {shape} do not fit rows of [{C2}, {L}, {n}]")
+    _fold_limits(T, M, C2, L, n)
+    return T // C2, T, M
+
+
+def _cmux_rows_plain(ctx: NTTContext, hi, lo, key, Td: int):
+    """normalize(lo + (hi - lo)[:Td] x key) of rows [R, C2, L, N] against
+    one key [P, T, M, N]: the composed CMux, the fold's plain version."""
+    R, C2, L, n = lo.shape
+    x = (hi - lo)[:, :, :Td].reshape(R, C2 * Td, n)
+    return fused_external_fold_plain(ctx, x, key[:, None], L, C2, base=lo)
+
+
+def fused_blind_rotate_plain(ctx: NTTContext, rows, keys_stacked, amounts):
+    """Plain version of `fused_blind_rotate`: one composed CMux a step."""
+    Td = keys_stacked.shape[2] // rows.shape[1]
+    for s, t in enumerate(amounts):
+        rows = _cmux_rows_plain(ctx, poly.rotate(rows, t), rows,
+                                keys_stacked[s], Td)
+    return rows
+
+
+def fused_blind_rotate(ctx: NTTContext, rows, keys_stacked, amounts):
+    """A whole blind-rotation CMux chain in one launch:
+
+        rows <- normalize(rows + (X^t_s rows - rows)[:Td] x GGSW_s)
+
+    for s = 0 .. S-1.  rows: int32[B, C2, L, N] normalized; keys_stacked:
+    int32[S, P, T, M, N] prepared bit-GGSW key rows (T = C2*Td, Td <= L the
+    decomposed top limbs; M = C2*Lk); amounts: S static rotation exponents
+    (any sign; X^N = -1).  Returns int32[B, C2, L, N]."""
+    B, C2, L, n = rows.shape
+    Td, T, M = _chain_keys(keys_stacked, 1, C2, L, n, ctx)
+    S = keys_stacked.shape[0]
+    if S != len(amounts) or not 1 <= S <= _MAX_STEPS:
+        raise ValueError(f"{S} keys, {len(amounts)} amounts: one launch "
+                         f"chains 1..{_MAX_STEPS} steps")
+    if keys_stacked.device != rows.device:
+        raise ValueError(f"keys_stacked lies on {keys_stacked.device}, rows on {rows.device}")
+    if not _use_kernel(ctx, rows):
+        return fused_blind_rotate_plain(ctx, rows, keys_stacked, amounts)
+    rows = _require(rows, "rows")
+    keys_stacked = _require(keys_stacked, "keys_stacked")
+    out = torch.empty_like(rows)
+    if B == 0:
+        return out
+    tmp = torch.empty_like(rows)
+    groups = min(B, _MAX_ROW_GROUPS)
+    scratch = torch.empty((groups, len(ctx.primes), M, n), dtype=I32,
+                          device=rows.device)
+    steps = _RotSteps()
+    steps.count = S
+    for s, t in enumerate(amounts):
+        steps.rot[s] = int(t) % (2 * n)
+    sh = _fold_shape(B, T, M, C2, L, 1, n)
+    with torch.cuda.device(rows.device):
+        err = _lib("blind_rotate").fhe_blind_rotate(
+            rows.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(),
+            tmp.data_ptr(), scratch.data_ptr(), B, groups, steps, Td, sh,
+            _consts(ctx), _tables(ctx, rows.device), _stream())
+    _check(err, "fused_blind_rotate")
+    LAUNCHES["fused_blind_rotate"] += 1
+    return out
+
+
+def _op_groups(groups, G: int):
+    """Per-op index of its source group; the groups must partition the ops."""
+    if sorted(gi for g in groups for gi in g) != list(range(G)):
+        raise ValueError(f"groups {groups} do not partition {G} ops")
+    if not 1 <= G <= _MAX_OPS:
+        raise ValueError(f"{G} ops: one launch takes 1..{_MAX_OPS}")
+    of = [0] * G
+    for si, g in enumerate(groups):
+        for gi in g:
+            of[gi] = si
+    return of
+
+
+def dp_leaf_rows(emit: bool, subtab: bool, flip: bool, first: bool):
+    """The four b-phase leaf rows of one carry-DP op, in the order (a, c) =
+    (0, 0), (0, 1), (1, 0), (1, 1): each (co0, co1, ob0, ob1), the carry-out
+    and the emitted bit for b = 0 and b = 1.  `flip` (slt: both MSBs
+    complemented) applies at the first step, the MSB, only."""
+    rows = []
+    for a in (0, 1):
+        for c in (0, 1):
+            co, ob = [], []
+            for b in (0, 1):
+                aa = 1 - a if (flip and first) else a
+                bb = 1 - b if (flip and first) else b
+                eff = (1 - bb) if subtab else bb
+                co.append((aa + eff + c) >> 1)
+                ob.append(((aa ^ eff ^ c) if subtab else (aa ^ bb ^ c))
+                          if emit else 0)
+            rows.append((co[0], co[1], ob[0], ob[1]))
+    return rows
+
+
+def fused_dp_chain_plain(ctx: NTTContext, F0, keys_stacked, deltas, op_tables,
+                         groups):
+    """Plain version of `fused_dp_chain`: per step one composed CMux over
+    each source group's leaf rows, then one over the a-phase rows."""
+    G, _, C2, L, n = F0.shape
+    bits = keys_stacked.shape[0]
+    NG = len(groups)
+    Td = keys_stacked.shape[3] // C2
+    F = F0
+    for d in range(bits):
+        delta = deltas[d]
+        inner = [None] * G
+        for si, gis in enumerate(groups):
+            his, los = [], []
+            for gi in gis:
+                for co0, co1, ob0, ob1 in dp_leaf_rows(*op_tables[gi], d == 0):
+                    his.append(F[gi, co1] + ob1 * delta)
+                    los.append(F[gi, co0] + ob0 * delta)
+            res = _cmux_rows_plain(ctx, torch.stack(his), torch.stack(los),
+                                   keys_stacked[d, si], Td)
+            for k, gi in enumerate(gis):
+                inner[gi] = res[4 * k: 4 * k + 4]
+        inner = torch.stack(inner)                  # [G, 4, C2, L, N]
+        F = _cmux_rows_plain(ctx, inner[:, 2:].reshape(2 * G, C2, L, n),
+                             inner[:, :2].reshape(2 * G, C2, L, n),
+                             keys_stacked[d, NG], Td).reshape(G, 2, C2, L, n)
+    return F
+
+
+def fused_dp_chain(ctx: NTTContext, F0, keys_stacked, deltas, op_tables, groups):
+    """The VM's whole carry-DP chain (MSB to LSB) in one launch.
+
+    F0: int32[G, 2, C2, L, N] initial per-op 2-state, normalized;
+    keys_stacked: int32[bits, NG+1, P, T, M, N] prepared bit-GGSW key rows
+      in STEP order (MSB first): per step one key per b-operand source
+      group, then the a-operand's (T = C2*Td, Td <= L; M = C2*Lk);
+    deltas: int32[bits, C2, L, N] the emitted-bit plaintext word of each
+      step, in step order;
+    op_tables[g] = (emit, subtab, flip) of op g; groups: per source group
+      the tuple of its op indices.
+    Returns int32[G, 2, C2, L, N]: the state after the last step."""
+    G, two, C2, L, n = F0.shape
+    bits = keys_stacked.shape[0]
+    of = _op_groups(groups, G)
+    NG = len(groups)
+    Td, T, M = _chain_keys(keys_stacked, 2, C2, L, n, ctx)
+    if (two != 2 or keys_stacked.shape[1] != NG + 1 or len(op_tables) != G
+            or tuple(deltas.shape) != (bits, C2, L, n) or bits < 1):
+        raise ValueError(f"F0 {tuple(F0.shape)}, keys {tuple(keys_stacked.shape)}, "
+                         f"deltas {tuple(deltas.shape)} and {len(op_tables)} op "
+                         f"tables do not fit {NG} groups")
+    for name, t in (("keys_stacked", keys_stacked), ("deltas", deltas)):
+        if t.device != F0.device:
+            raise ValueError(f"{name} lies on {t.device}, F0 on {F0.device}")
+    if not _use_kernel(ctx, F0):
+        return fused_dp_chain_plain(ctx, F0, keys_stacked, deltas, op_tables,
+                                    groups)
+    F0 = _require(F0, "F0")
+    keys_stacked = _require(keys_stacked, "keys_stacked")
+    deltas = _require(deltas, "deltas")
+    tab = _DpTables()
+    tab.count = G
+    for g in range(G):
+        tab.group[g] = of[g]
+        for first in (0, 1):
+            for r, (co0, co1, ob0, ob1) in enumerate(
+                    dp_leaf_rows(*op_tables[g], bool(first))):
+                tab.leaf[(g * 2 + first) * 4 + r] = co0 | co1 << 1 | ob0 << 2 | ob1 << 3
+    sh, resident = _cooperative_shape("dp_chain", T, M, C2, L, 1, n, F0.device)
+    cs = next(c for c in (_row_blocks(4 * G, M), 3, 1) if 4 * c <= resident)
+    groups_ = min(G, resident // (4 * cs))
+    sh.cs = cs
+    blocks = groups_ * 4 * cs
+    out = torch.empty_like(F0)
+    inner = torch.empty((G, 4, C2, L, n), dtype=I32, device=F0.device)
+    scratch = torch.empty((blocks // cs, len(ctx.primes), M, n), dtype=I32,
+                          device=F0.device)
+    arrived = torch.zeros((groups_, 5), dtype=I32, device=F0.device)
+    with torch.cuda.device(F0.device):
+        err = _lib("dp_chain").fhe_dp_chain(
+            F0.data_ptr(), keys_stacked.data_ptr(), deltas.data_ptr(),
+            out.data_ptr(), inner.data_ptr(), scratch.data_ptr(),
+            arrived.data_ptr(), blocks, tab, bits, NG, Td, sh, _consts(ctx),
+            _tables(ctx, F0.device), _stream())
+    _check(err, "fused_dp_chain")
+    LAUNCHES["fused_dp_chain"] += 1
+    return out
+
+
+def fused_bitwise_plain(ctx: NTTContext, leaves_hi, leaves_lo, keys_stacked,
+                        groups):
+    """Plain version of `fused_bitwise`: one composed keyed CMux over each
+    source group's leaf rows (key j for bit j), then one over the a-level."""
+    G, _, C2, L, n = leaves_hi.shape
+    W = keys_stacked.shape[0]
+    NG = len(groups)
+    Td = keys_stacked.shape[3] // C2
+    P, T, M = keys_stacked.shape[2:5]
+    inner = [None] * G
+    for si, gis in enumerate(groups):
+        hi = leaves_hi[list(gis)].reshape(1, 2 * len(gis), C2, L, n)
+        lo = leaves_lo[list(gis)].reshape(1, 2 * len(gis), C2, L, n)
+        x = (hi - lo)[:, :, :, :Td].reshape(1, 2 * len(gis), T, n).expand(
+            W, -1, -1, -1)
+        res = fused_external_fold_batched_plain(
+            ctx, x, keys_stacked[:, si].reshape(W, P, 1, T, M, n), L, C2,
+            base=lo.expand(W, -1, -1, -1, -1))
+        for k, gi in enumerate(gis):
+            inner[gi] = res[:, 2 * k: 2 * k + 2]
+    inner = torch.stack(inner, dim=1)              # [W, G, 2, C2, L, N]
+    hi, lo = inner[:, :, 0], inner[:, :, 1]
+    x = (hi - lo)[:, :, :, :Td].reshape(W, G, T, n)
+    return fused_external_fold_batched_plain(
+        ctx, x, keys_stacked[:, NG].reshape(W, P, 1, T, M, n), L, C2, base=lo)
+
+
+def fused_bitwise(ctx: NTTContext, leaves_hi, leaves_lo, keys_stacked, groups):
+    """All W bits of the VM's bitwise group in one launch.
+
+    leaves_hi / leaves_lo: int32[G, 2, C2, L, N] the constant truth-table
+      arms of each op, (l11, l01) / (l10, l00);
+    keys_stacked: int32[W, NG+1, P, T, M, N] prepared key rows of bit j:
+      one per b-operand source group, then the a-operand's (T = C2*Td);
+    groups: per source group the tuple of its op indices.
+    Returns int32[W, G, C2, L, N]: out[j, g] = CMux(a_j; CMux(b_j; l11,
+    l10), CMux(b_j; l01, l00)) for op g."""
+    G, two, C2, L, n = leaves_hi.shape
+    W = keys_stacked.shape[0]
+    of = _op_groups(groups, G)
+    NG = len(groups)
+    Td, T, M = _chain_keys(keys_stacked, 2, C2, L, n, ctx)
+    if (two != 2 or tuple(leaves_lo.shape) != tuple(leaves_hi.shape)
+            or keys_stacked.shape[1] != NG + 1 or W < 1):
+        raise ValueError(f"leaves {tuple(leaves_hi.shape)} / {tuple(leaves_lo.shape)} "
+                         f"and keys {tuple(keys_stacked.shape)} do not fit {NG} groups")
+    for name, t in (("keys_stacked", keys_stacked), ("leaves_lo", leaves_lo)):
+        if t.device != leaves_hi.device:
+            raise ValueError(f"{name} lies on {t.device}, leaves_hi on {leaves_hi.device}")
+    if not _use_kernel(ctx, leaves_hi):
+        return fused_bitwise_plain(ctx, leaves_hi, leaves_lo, keys_stacked, groups)
+    hi = _require(leaves_hi, "leaves_hi")
+    lo = _require(leaves_lo, "leaves_lo")
+    keys_stacked = _require(keys_stacked, "keys_stacked")
+    ops = _OpGroups()
+    ops.count = G
+    for g in range(G):
+        ops.group[g] = of[g]
+    slots = 2 * G
+    sh, resident = _cooperative_shape("bitwise", T, M, C2, L, 1, n, hi.device)
+    cs = next((c for c in (_row_blocks(W * slots, M), 3, 1) if slots * c <= resident),
+              None)
+    if cs is None:
+        raise RuntimeError(f"bitwise: {slots} blocks a bit, the device holds {resident}")
+    groups_ = min(W, resident // (slots * cs))
+    sh.cs = cs
+    blocks = groups_ * slots * cs
+    out = torch.empty((W, G, C2, L, n), dtype=I32, device=hi.device)
+    inner = torch.empty((W, G, 2, C2, L, n), dtype=I32, device=hi.device)
+    scratch = torch.empty((blocks // cs, len(ctx.primes), M, n), dtype=I32,
+                          device=hi.device)
+    arrived = torch.zeros((groups_, slots + 1), dtype=I32, device=hi.device)
+    with torch.cuda.device(hi.device):
+        err = _lib("bitwise").fhe_bitwise(
+            hi.data_ptr(), lo.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(),
+            inner.data_ptr(), scratch.data_ptr(), arrived.data_ptr(), blocks, ops,
+            W, NG, Td, sh, _consts(ctx), _tables(ctx, hi.device), _stream())
+    _check(err, "fused_bitwise")
+    LAUNCHES["fused_bitwise"] += 1
     return out

@@ -7,7 +7,9 @@ In R = Z[X]/(X^N+1):
     g odd (g = -1 is the inversion map).
 
 Both are index arithmetic.  `auto_inverse` gives the constant the CUDA
-kernels use to evaluate sigma_g at an output index without a table.
+kernels use to evaluate sigma_g at an output index without a table;
+`rotate_each` rotates every row of a stack by its own amount in one
+gather.
 """
 
 from __future__ import annotations
@@ -28,6 +30,24 @@ def rotate(x, k: int):
         return -x if neg else x
     out = torch.cat([-x[..., n - k:], x[..., : n - k]], dim=-1)
     return -out if neg else out
+
+
+@lru_cache(maxsize=None)
+def _rotate_tables(n: int, ks: tuple, device):
+    """Gather tables of X^k for each k: out[w, j] = sign[w, j] *
+    x[w, src[w, j]], int64[W, N] and int32[W, N] on `device`."""
+    j = np.arange(n)
+    m = (j[None, :] - np.asarray(ks, dtype=np.int64)[:, None]) % (2 * n)
+    return (torch.as_tensor(m % n, device=device),
+            torch.as_tensor(np.where(m < n, 1, -1).astype(np.int32), device=device))
+
+
+def rotate_each(x, ks):
+    """Row w of x [W, ..., N] multiplied by X^ks[w] (static ks): one gather
+    for all rows, the same integers as W calls of `rotate`."""
+    src, sign = _rotate_tables(x.shape[-1], tuple(int(k) for k in ks), x.device)
+    view = (src.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    return torch.gather(x, -1, src.reshape(view).expand(x.shape)) * sign.reshape(view)
 
 
 @lru_cache(maxsize=None)

@@ -123,7 +123,7 @@ def read_impl(params: Params, ctx: NTTContext, data, coords, atk,
 
 
 def read_batch_impl(params: Params, ctx: NTTContext, data, coords_b, atk,
-                    data_ntt=None, pack_deep: int = 0, tree: bool = False):
+                    data_ntt=None, tree: bool = False):
     """Batched encrypted read at A addresses.  coords_b: tuple of stacked
     prepared coordinates, leading axis A.  Returns int32[A, W, C, L, N],
     the same integers as A single reads.
@@ -138,13 +138,6 @@ def read_batch_impl(params: Params, ctx: NTTContext, data, coords_b, atk,
         those of a per-address pack).
     The level-0 output is A times the RAM's size: callers split a large
     batch (FheRam.read_batch does, by its batch_slice argument).
-
-    pack_deep = d > 0 is the hybrid-depth pack schedule: the shallow merge
-    levels run per address down to d surviving nodes (packer.pack_prefix,
-    W rows a pair as in a single read), and the remaining log2(d) levels
-    run once with the batch folded into the row axis
-    (packer.pack_tree(prescale=False)).  It applies to a level packed from
-    one chunk of more than d leaves; the integers are the same.
     tree: the one-launch pack tree where the folded pack runs the full
     gadget (packer.pack)."""
     ept, kst = params.read_ep_trunc, params.read_ks_trunc
@@ -156,21 +149,9 @@ def read_batch_impl(params: Params, ctx: NTTContext, data, coords_b, atk,
                                                  coords_b[0], data_ntt,
                                                  trunc=ept)
     for i in range(1, n2):
-        rows = cur.shape[2]
-        if (A > 1 and pack_deep > 0 and rows <= params.n
-                and pack_deep < (1 << (rows - 1).bit_length())):
-            pref = torch.stack(
-                [packer.pack_prefix(params, ctx, _pack_leaves(cur[a]), atk,
-                                    pack_deep, trunc=kst)
-                 for a in range(A)], dim=1)  # [d, A, W, C, L, N]
-            root = packer.pack_tree(
-                params, ctx, pref.reshape((pack_deep, A * W) + pref.shape[3:]),
-                atk, dilate=1, prescale=False, trunc=kst)
-            cur = root.reshape((A, W, 1) + root.shape[1:])
-        else:
-            flat = cur.reshape((A * W,) + cur.shape[2:])
-            flat = _pack_rows(params, ctx, flat, atk, trunc=kst, tree=tree)
-            cur = flat.reshape((A, W) + flat.shape[1:])
+        flat = cur.reshape((A * W,) + cur.shape[2:])
+        flat = _pack_rows(params, ctx, flat, atk, trunc=kst, tree=tree)
+        cur = flat.reshape((A, W) + flat.shape[1:])
         if i == n2 - 1:
             cur = cur[:, :, 0]  # [A, W, C, L, N]
         cur = address_mod.coordinate_product_perbatch(params, ctx, cur,
@@ -447,30 +428,22 @@ class FheRam:
 
     @torch.no_grad()
     def read_batch(self, state: RamState, addrs_prep, cache=None,
-                   batch_slice: int = 64, pack_deep: int = 0):
+                   batch_slice: int = 64):
         """Batched reads at many addresses.  addrs_prep: tuple of prepared
         coordinates stacked on axis 0 (convert.stack_addresses).  Returns
         int32[A, W, C, L, N].  More than batch_slice addresses run as
         consecutive slices of that size: the level-0 intermediate of one
-        slice is batch_slice times the RAM's ciphertext.  pack_deep: the
-        hybrid-depth pack schedule (read_batch_impl); 0 folds every level
-        over the batch.  The same integers either way; on an NVIDIA H100
-        80GB HBM3 (700 W) pack_deep=4 was 20 % slower than 0 at 16
-        addresses of the 2^18 x 4-byte preset (27.2 ms against 22.5,
-        chip_smoke.py), so leave it at 0 unless a measurement says otherwise."""
+        slice is batch_slice times the RAM's ciphertext."""
         assert not state.pending, "pending write: call write() first"
         if batch_slice < 1:
             raise ValueError(f"batch_slice = {batch_slice}")
-        if pack_deep < 0 or pack_deep & (pack_deep - 1):
-            raise ValueError(f"pack_deep = {pack_deep}: 0 or a power of two")
         self._on_device("addresses", *addrs_prep)
         if cache is not None:
             self._on_device("spectral cache", cache)
         A = addrs_prep[0].shape[0]
         outs = [read_batch_impl(self.params, self.ctx, state.data,
                                 tuple(c[a0: a0 + batch_slice] for c in addrs_prep),
-                                self.keys.atk_glwe, cache, pack_deep,
-                                self.tree_kernels)
+                                self.keys.atk_glwe, cache, tree=self.tree_kernels)
                 for a0 in range(0, A, batch_slice)]
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 

@@ -25,11 +25,14 @@ def test_port_has_the_expected_layout():
                  "core/rng.py", "core/glwe.py", "core/ggsw.py",
                  "core/keyswitch.py", "core/packer.py", "core/keys.py",
                  "core/noise.py", "utils/io.py", "utils/profiling.py",
-                 "ram/address.py", "ram/ram.py", "tools/time_fold_chunks.py"):
+                 "ram/address.py", "ram/ram.py", "tools/time_fold_chunks.py",
+                 "vm/fheuint.py", "vm/circuits.py", "vm/arithmetic.py",
+                 "vm/store.py", "vm/conversion.py", "vm/cycle.py"):
         assert want in names, want
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "fhe_core.cuh", "ntt.cu", "fold.cu", "trace.cu", "pack_merge.cu",
-        "split.cu", "split_tree.cu", "pack_tree.cu"}
+        "split.cu", "split_tree.cu", "pack_tree.cu", "blind_rotate.cu",
+        "dp_chain.cu", "bitwise.cu"}
     # every source the build names is there, and nothing is left unnamed
     from fhe_ram_tpu_torch.ops import ntt_cuda
     assert {f"{s}.cu" for s in ntt_cuda.SOURCES} == {
@@ -37,7 +40,8 @@ def test_port_has_the_expected_layout():
     assert set(ntt_cuda.LAUNCHES) == {
         "ntt_fwd", "ntt_inv", "fused_external_fold",
         "fused_external_fold_batched", "fused_trace", "fused_pack_merge",
-        "fused_split", "fused_split_tree", "fused_pack_tree"}
+        "fused_split", "fused_split_tree", "fused_pack_tree",
+        "fused_blind_rotate", "fused_dp_chain", "fused_bitwise"}
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -59,6 +63,8 @@ def test_importing_the_port_loads_no_jax():
         "from fhe_ram_tpu_torch.ram import address, ram\n"
         "from fhe_ram_tpu_torch.utils import io, profiling\n"
         "from fhe_ram_tpu_torch.tools import time_fold_chunks\n"
+        "from fhe_ram_tpu_torch.vm import fheuint, circuits, arithmetic, store, conversion, cycle\n"
+        "assert callable(cycle.vm_cycle) and callable(ntt_cuda.fused_dp_chain)\n"
         "assert callable(ram.FheRam.write) and callable(ram.FheRam.read_batch)\n"
         "assert callable(ram.FheRam.rmw_batch) and callable(ram.rmw_batch_impl)\n"
         "assert callable(ntt_cuda.fused_split_tree) and callable(ntt_cuda.fused_pack_tree)\n"

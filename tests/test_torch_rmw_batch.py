@@ -2,8 +2,7 @@
 CPU: pre-write words out, all words land, a neighbour unchanged; the tree
 kernels' route (tree_kernels=True: one-launch pack and split trees, here
 their plain versions) gives the integers of the per-level route; the
-hybrid-depth batched read gives those of the folded one; the batched GGSW
-inversion those of the per-address one; refusals.
+batched GGSW inversion those of the per-address one; refusals.
 
 Single-level and three-level geometries (n2 = 1: no pack, no extraction;
 n2 = 3: a two-chunk level-0 pack and the mid loop of the delta walk).  The
@@ -181,19 +180,6 @@ def test_rmw_batch_with_the_spectral_cache_and_a_batch_of_one(client):
     plain[c.idxs[0] * W: (c.idxs[0] + 1) * W] = c.words[0]
     c.check_word(c.server.read(state1, c.preps[0]), plain, c.idxs[0], "read-back")
     c.check_word(c.server.read(state1, c.preps[1]), plain, c.idxs[1], "untouched")
-
-
-def test_read_batch_hybrid_depth_equals_the_folded_schedule(client):
-    """pack_deep = 2: per-address merges down to 2 nodes, the last level
-    folded over the batch.  At the single-level geometry there is no pack
-    and the option changes nothing."""
-    c = client
-    coords = stack_addresses(c.preps)
-    want = c.server.read_batch(c.state, coords)
-    assert torch.equal(c.server.read_batch(c.state, coords, pack_deep=2), want)
-    assert torch.equal(c.tree_server.read_batch(c.state, coords, pack_deep=1), want)
-    with pytest.raises(ValueError):
-        c.server.read_batch(c.state, coords, pack_deep=3)
 
 
 def test_batched_inversion_equals_the_per_address_inversion(client):

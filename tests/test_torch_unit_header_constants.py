@@ -21,6 +21,8 @@ def test_python_limits_and_structs_match_the_cuda_header():
     defines = {k: int(v) for k, v in re.findall(r"#define (FHE_\w+) (\d+)", text)}
     assert defines["FHE_MAX_L"] == ntt_cuda._MAX_L
     assert defines["FHE_MAX_STEPS"] == ntt_cuda._MAX_STEPS
+    assert defines["FHE_MAX_OPS"] == ntt_cuda._MAX_OPS
+    assert defines["FHE_MAX_LEAVES"] == 8 * ntt_cuda._MAX_OPS
     assert defines["FHE_P"] == 3 and defines["FHE_THREADS"] == 512
 
     def fields(struct):
@@ -31,9 +33,16 @@ def test_python_limits_and_structs_match_the_cuda_header():
                            ("TraceSteps", ntt_cuda._TraceSteps),
                            ("TreeLevels", ntt_cuda._TreeLevels),
                            ("FheConsts", ntt_cuda._Consts),
-                           ("FheTables", ntt_cuda._Tables)):
+                           ("FheTables", ntt_cuda._Tables),
+                           ("RotSteps", ntt_cuda._RotSteps),
+                           ("DpTables", ntt_cuda._DpTables),
+                           ("OpGroups", ntt_cuda._OpGroups)):
         assert fields(struct) == [name for name, _ in mirror._fields_], struct
     steps = ntt_cuda._MAX_STEPS
     assert ctypes.sizeof(ntt_cuda._TraceSteps) == 4 * (1 + steps)
     assert ctypes.sizeof(ntt_cuda._TreeLevels) == 4 * (1 + 3 * steps)
     assert ctypes.sizeof(ntt_cuda._FoldShape) == 4 * 8
+    assert ctypes.sizeof(ntt_cuda._RotSteps) == 4 * (1 + steps)
+    ops = ntt_cuda._MAX_OPS
+    assert ctypes.sizeof(ntt_cuda._OpGroups) == 4 * (1 + ops)
+    assert ctypes.sizeof(ntt_cuda._DpTables) == 4 * (1 + ops) + 8 * ops
