@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's encrypted RAM once on one NVIDIA GPU: reads,
-read-modify-write cycles, batched reads, batched read-modify-writes and
-encrypted VM instruction cycles.
+read-modify-write cycles, batched reads, batched read-modify-writes,
+encrypted VM instruction cycles, and the 2^24 RAM unsharded and row-sharded
+over a mesh whose shards all lie on the card.
 
     python3 chip_smoke.py [--seed N] [--reads N] [--profile] [--kernels-only]
                           [--verbose-build]
@@ -12,9 +13,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
   build          compiles the CUDA kernels from fhe_ram_tpu_torch/csrc
   kernel checks  each kernel against its plain PyTorch version on the card,
                  at the shapes the paths below give it at
-                 PARAMS_2_18_TURBO_READOPT, and the VM's kernels at the
-                 cycle's shapes at PARAMS_2_18_READOPT (torch.equal: integer
-                 arithmetic, tolerance 0), with times
+                 PARAMS_2_18_TURBO_READOPT, the VM's kernels at the
+                 cycle's shapes at PARAMS_2_18_READOPT, the collectives at
+                 the row-sharded paths' shapes at PARAMS_2_24_READOPT
+                 (torch.equal: integer arithmetic, tolerance 0), with times
+                 (the collectives also beside torch.stack / clone)
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -48,8 +51,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  checked ones; the four parts timed apart
   vm_cycle_vs_plain  the last cycle again through the plain versions on the
                  card: rd, fetched and the whole new RAM bit-equal
-  kernels        one line for all kernels: launches over the five paths,
-                 error, time, the plain version's time, and the card's bound
+  read_2_24      the port's own client at PARAMS_2_24_READOPT (keygen, 2^24 x
+                 4 random bytes encrypted: 1.5 GiB of ciphertext), 4 reads at
+                 distinct addresses through FheRam.read; each decodes
+  sharded_read   the same 4 reads on a mesh of rows = 4 (parallel/mesh.py),
+                 with collective="ring" and "exchange": every shard's output
+                 equals the unsharded read bit for bit; launches per read
+  sharded_batch  batched_read_fn at dp 1 x rows 4, a batch of 8, with and
+                 without the cache, equal to 8 single reads; batched_rmw_fn at
+                 dp 2 x rows 2, 4 distinct addresses, equal to FheRam.rmw_batch
+                 on the read-outs and the whole new RAM
+  sharded_rmw_batch_vs_plain  that batched_rmw_fn call again through the
+                 plain versions on the card, collectives included: the
+                 read-outs and every new data shard bit-equal
+  sharded_rmw    2 chained sharded_rmw_fn cycles, then a sharded_rpw_fn +
+                 sharded_write_fn pair: each new RAM, un-permuted, equals the
+                 unsharded read_prepare_write + write; old words out, new words
+                 and 2 untouched addresses read back
+  sharded_rmw_vs_plain  the first sharded_rmw_fn cycle again through the
+                 plain versions on the card: every shard's read-out and
+                 every new data shard bit-equal
+  sharded_vs_plain  one sharded read again through the plain versions on the
+                 card, collectives included: every shard's output bit-equal
+  kernels        one line for all kernels: launches over the nine paths,
+                 error, time, the plain version's time, the card's bound, and
+                 for the collectives the library call's time
 
 The last line is {"ok": true, "device": {...}}.  Needs one CUDA device and
 nvcc; imports fhe_ram_tpu_torch only.
@@ -151,6 +177,35 @@ VM_CYCLE_LAUNCHES = dict(fused_dp_chain=1, fused_bitwise=1, fused_blind_rotate=4
                          fused_external_fold_batched=6, fused_trace=8,
                          fused_external_fold=8, fused_pack_merge=6, fused_split=6,
                          ntt_fwd=4)
+
+
+# -- the row-sharded paths at PARAMS_2_24_READOPT (kernels 13, 14) ----------
+
+BIG_READS = 4      # reads at 2^24, unsharded and on each mesh
+SHARDS = 4         # rows shards of the single read, the RMW and the batched read
+BIG_BATCH_READ = 8  # addresses of the sharded batched read (dp 1 x rows 4)
+DP_RMW, ROWS_RMW, NB_BIG_RMW = 2, 2, 4  # the sharded batched RMW's mesh and batch
+# (shards, pack roots a chunk[, stride]) of every collective launch on those
+# paths, each held against its plain version: the single read's root at rows
+# 4 (driven) and 2 and 8, a batch of 8 roots at rows 4, the batched RMW's 2
+# roots a replica at rows 2; the exchange's two rounds at rows 4 (driven) and
+# three at rows 8
+COLLECTIVE_SHAPES = {
+    "ring_all_gather": ((2, 1), (4, 1), (8, 1), (SHARDS, BIG_BATCH_READ),
+                        (ROWS_RMW, NB_BIG_RMW // DP_RMW)),
+    "exchange": ((4, 1, 1), (4, 1, 2), (8, 1, 1), (8, 1, 2), (8, 1, 4))}
+COLLECTIVES = tuple(COLLECTIVE_SHAPES)
+
+
+def collective_note(n_shards, chunk, stride=None):
+    """The shape note of one collective call, the same for a check and for
+    a recorded launch."""
+    note = f"n={n_shards} chunk{list(chunk.shape)}"
+    return note if stride is None else f"{note} stride={stride}"
+
+
+def chunk_bytes(t):
+    return t.numel() * t.element_size()
 
 
 def alu_model(op, a, b, imm):
@@ -256,7 +311,8 @@ def main():
                     help="stop after the kernel checks (a first look at new kernels)")
     ap.add_argument("--profile", action="store_true",
                     help="trace one more read, write cycle, batched read, "
-                         "batched read-modify-write and VM cycle with "
+                         "batched read-modify-write, VM cycle, 2^24 read, "
+                         "sharded read and sharded RMW with "
                          "torch.profiler: device time by kernel and the "
                          "device's idle share")
     ap.add_argument("--verbose-build", action="store_true",
@@ -270,6 +326,9 @@ def main():
 
     from fhe_ram_tpu_torch.params import PARAMS_2_18_TURBO_READOPT as PAR
     from fhe_ram_tpu_torch.params import PARAMS_2_18_READOPT as VPAR
+    from fhe_ram_tpu_torch.params import PARAMS_2_24_READOPT as BPAR
+    from fhe_ram_tpu_torch.parallel import collective as coll_mod
+    from fhe_ram_tpu_torch.parallel import mesh as mesh_mod
     from fhe_ram_tpu_torch.ops import ntt_cuda
     from fhe_ram_tpu_torch.ops.ntt import get_ntt_context
     from fhe_ram_tpu_torch.core import glwe, keys as keys_mod, rng
@@ -326,12 +385,14 @@ def main():
     poly_b = 4 * n  # bytes of one int32 polynomial
 
     def check(name, shape_note, kernel_fn, reps=7, plain_reps=3,
-              per_level_fn=None, work=None):
+              per_level_fn=None, work=None, library_fn=None):
         """Run kernel and plain version on the same tensors; compare; time.
         kernel_fn returns one tensor or a tuple of them.  per_level_fn: the
         same function as a sequence of per-level kernel launches (a tree
         kernel's yardstick); held bit-equal and timed as well.  work: (bytes
-        moved, operations) of this shape, for its bound beside its time."""
+        moved, operations) of this shape, for its bound beside its time.
+        library_fn: one PyTorch call that computes the same function, timed
+        beside it (never used by the port)."""
         def outputs(fn):
             out = fn()
             torch.cuda.synchronize()
@@ -353,6 +414,8 @@ def main():
                "plain_ms": plain_ms}
         if work is not None:
             rec["bound_ms"], rec["bound_by"] = bound(*work)
+        if library_fn is not None:
+            rec["library_ms"] = time_ms(library_fn, reps, 2, flush)
         if per_level_fn is not None:
             levels = outputs(per_level_fn)
             ok = ok and all(torch.equal(a, b) for a, b in zip(got, levels))
@@ -603,6 +666,23 @@ def main():
         check(name, shape, fn, plain_reps=1, work=work)
         del fn
     del inputs
+
+    # kernels 13 and 14: the collectives at the shapes of the row-sharded
+    # paths at PARAMS_2_24_READOPT (one pack root a shard, or a batch's)
+    BW, BC, BL = BPAR.word_size, BPAR.rank + 1, BPAR.limbs_ct
+    for n_sh, roots in COLLECTIVE_SHAPES["ring_all_gather"]:
+        chunks = [limbs((roots * BW, BC, BL, n)) for _ in range(n_sh)]
+        check("ring_all_gather", collective_note(n_sh, chunks[0]),
+              lambda: tuple(coll_mod.ring_all_gather(chunks)),
+              work=(chunk_bytes(chunks[0]) * (n_sh + n_sh * n_sh), 0),
+              library_fn=lambda: torch.stack(chunks))
+    for n_sh, roots, stride in COLLECTIVE_SHAPES["exchange"]:
+        chunks = [limbs((roots * BW, BC, BL, n)) for _ in range(n_sh)]
+        check("exchange", collective_note(n_sh, chunks[0], stride),
+              lambda: tuple(coll_mod.exchange(chunks, stride)),
+              work=(chunk_bytes(chunks[0]) * 2 * n_sh, 0),
+              library_fn=lambda: chunks[1 ^ stride].clone())
+    del chunks
     emit({"phase": "kernel_checks", "ok": True, "tolerance": 0, "checks": checks})
     if args.kernels_only:
         return
@@ -1161,6 +1241,360 @@ def main():
           "plain_vm_cycle_ms": plain_vm_ms})
     del p_rd, p_fetched, p_state, vm_inputs, final
 
+    # ---- the 2^24 configuration: the unsharded read, then the row-sharded ----
+    # paths on a mesh whose shards all lie on this card (kernels 13 and 14)
+    bctx = get_ntt_context(BPAR.n, BPAR.primes)
+    BW, BC, BL = BPAR.word_size, BPAR.rank + 1, BPAR.limbs_ct
+    LV = BPAR.num_rows.bit_length() - 1   # merge levels of the pack: 12
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    bsrc = rng.Source(args.seed + 24)
+    bsk = rng.ternary_secret(bsrc.split(), BPAR.rank, BPAR.n, BPAR.xs_density,
+                             device=dev)
+    bs_ntt = glwe.secret_prepare(bctx, bsk)
+    bkeys = keys_mod.prepare(BPAR, keys_mod.keygen(BPAR, bsk, bsrc))
+    bdata = np.random.default_rng(args.seed + 25).integers(
+        0, 256, size=BPAR.max_addr * BW).astype(np.uint8)
+    bserver = ram_mod.FheRam(BPAR, bkeys, device=dev)
+    bstate = bserver.init_state(ram_mod.encrypt_ram(BPAR, bctx, bs_ntt, bdata, bsrc))
+    torch.cuda.synchronize()
+    big_setup_s = time.time() - t0
+    big_setup_peak = torch.cuda.max_memory_allocated()
+    batk = bkeys.atk_glwe
+    # distinct addresses: reads (also the batch's first half), the batch's
+    # second half, three write cycles, the batched RMW
+    bpicks = [int(a) for a in np.random.default_rng(args.seed + 26).choice(
+        BPAR.max_addr, size=2 * BIG_READS + 3 + NB_BIG_RMW, replace=False)]
+    big_reads, big_more = bpicks[:BIG_READS], bpicks[BIG_READS: 2 * BIG_READS]
+    big_cycles = bpicks[2 * BIG_READS: 2 * BIG_READS + 3]
+    big_rmw = bpicks[2 * BIG_READS + 3:]
+
+    def baddress(idx):
+        coeff = address_mod.encrypt(BPAR, bctx, bs_ntt, idx, bsrc)
+        return coeff, address_mod.prepare(bctx, coeff)
+
+    def bdecode(out, idx, what, plain):
+        """Every byte of the word at idx equals `plain`'s, under the noise
+        bound; returns the worst log2 noise."""
+        if tuple(out.shape) != (BW, BC, BL, BPAR.n) or out.dtype != torch.int32:
+            fail(f"{what} at {idx}: output {tuple(out.shape)} {out.dtype}")
+        worst = -1e9
+        ph = glwe.phase(BPAR, bctx, bs_ntt, out)
+        for i in range(BW):
+            want = glwe.cast_u8_signed(int(plain[idx * BW + i]), BPAR.k_pt)
+            val, noise = glwe.decode_coeff0(BPAR, ph[i], want)
+            if int(val) != want or not noise < -(BPAR.k_pt + 1):
+                fail(f"{what} at {idx}, byte {i}: decoded {int(val)} (noise "
+                     f"2^{float(noise):.2f}), stored {want}")
+            worst = max(worst, float(noise))
+        return worst
+
+    def same_on_every_shard(outs, want, what):
+        """Every shard's copy of a replicated output equals `want`."""
+        for k, o in enumerate(outs):
+            if not torch.equal(o, want):
+                fail(f"{what}: shard {k}'s output differs from the unsharded one")
+
+    def equal_to_plain(kernel_out, fn, what):
+        """fn() again through the plain versions on the card, collectives
+        included: every tensor of its (nested) output bit-equal to
+        kernel_out; returns the plain run's ms.  Not counted: outside
+        `counted`, and the plain versions launch nothing."""
+        with ntt_cuda.plain_versions():
+            plain_out, plain_ms = timed(fn)
+
+        def walk(a, b, where):
+            if isinstance(a, torch.Tensor):
+                if not (isinstance(b, torch.Tensor) and torch.equal(a, b)):
+                    fail(f"{what}: {where or 'the output'}, kernels and plain "
+                         "versions disagree")
+                return
+            if len(a) != len(b):
+                fail(f"{what}: {where}: {len(a)} parts against {len(b)}")
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{where}[{i}]")
+        walk(kernel_out, plain_out, "")
+        return plain_ms
+
+    # the collectives' launched shapes, recorded on the counted paths
+    seen_coll = {k: set() for k in COLLECTIVES}
+    real_coll = {k: getattr(coll_mod, k) for k in COLLECTIVES}
+
+    def record_collectives(on):
+        for name in COLLECTIVES:
+            if not on:
+                setattr(coll_mod, name, real_coll[name])
+                continue
+
+            def call(chunks, *a, _name=name):
+                seen_coll[_name].add(collective_note(len(chunks), chunks[0], *a))
+                return real_coll[_name](chunks, *a)
+            setattr(coll_mod, name, call)
+
+    def counted(fn, total):
+        """launches_of(fn) with the collectives' shapes recorded, its
+        launches added to `total` (a path's count: only the calls of the
+        path itself, no comparison, read-back or client work)."""
+        record_collectives(True)
+        try:
+            out, ms, delta = launches_of(fn)
+        finally:
+            record_collectives(False)
+        for k_, v_ in delta.items():
+            total[k_] += v_
+        return out, ms, delta
+
+    # ---- read_2_24: the unsharded read -----------------------------------------
+    baddrs = {idx: baddress(idx) for idx in big_reads + big_more}
+    read24_launches = dict.fromkeys(ntt_cuda.LAUNCHES, 0)
+    big_ms, big_out, worst_big = [], {}, -1e9
+    for idx in big_reads:
+        out, ms, delta = counted(lambda: bserver.read(bstate, baddrs[idx][1]),
+                                 read24_launches)
+        expect_launches(f"2^24 read at {idx}", delta, fused_external_fold=2,
+                        fused_pack_merge=LV, fused_trace=1)
+        big_ms.append(ms)
+        big_out[idx] = out
+    big_read_peak = torch.cuda.max_memory_allocated()
+    for idx in big_reads:
+        worst_big = max(worst_big, bdecode(big_out[idx], idx, "2^24 read", bdata))
+    emit({"phase": "read_2_24", "ok": True, "preset": "PARAMS_2_24_READOPT",
+          "max_addr": BPAR.max_addr, "word_size": BW, "rows": BPAR.num_rows,
+          "addresses": big_reads, "read_2_24_ms": statistics.median(big_ms),
+          "read_2_24_ms_all": big_ms, "worst_noise_log2": worst_big,
+          "noise_bound_log2": -(BPAR.k_pt + 1), "launches_per_read": delta,
+          "setup_seconds": round(big_setup_s, 2),
+          "ram_ciphertext_bytes": bstate.data.numel() * 4,
+          "peak_device_bytes_setup": big_setup_peak,
+          "peak_device_bytes": big_read_peak})
+
+    # ---- sharded_read: rows = 4 on this card, both collectives -------------
+    n4 = SHARDS
+    bmesh = mesh_mod.make_mesh(n4, rows=n4, devices=[dev] * n4)
+    bshards = mesh_mod.shard_data_rows(bmesh, bstate.data)
+    if not torch.equal(mesh_mod.unshard_rows(bshards), bstate.data):
+        fail("unshard_rows does not invert shard_data_rows")
+    shread_launches = dict.fromkeys(ntt_cuda.LAUNCHES, 0)
+    sh_ms, sh_launches = {}, {}
+    for col, tail in (("ring", {"ring_all_gather": 1}),
+                      ("exchange", {"exchange": n4.bit_length() - 1})):
+        fn = mesh_mod.sharded_read_fn(BPAR, bmesh, col)
+        sh_ms[col] = []
+        for idx in big_reads:
+            outs, ms, delta = counted(lambda: fn(bshards, baddrs[idx][1].coordinates,
+                                                 batk), shread_launches)
+            expect_launches(f"sharded read ({col}) at {idx}", delta,
+                            fused_external_fold=2 * n4,
+                            fused_pack_merge=LV * n4, fused_trace=n4, **tail)
+            same_on_every_shard(outs, big_out[idx], f"sharded read ({col}) at {idx}")
+            sh_ms[col].append(ms)
+        sh_launches[col] = delta
+    emit({"phase": "sharded_read", "ok": True, "mesh": bmesh.shape,
+          "devices": "one card", "addresses": big_reads,
+          "equal_to_unsharded_read_on_every_shard": True,
+          "sharded_read_ms": {c: statistics.median(v) for c, v in sh_ms.items()},
+          "sharded_read_ms_all": sh_ms, "launches_per_read": sh_launches})
+
+    # ---- sharded_batch: batched reads (dp 1 x rows 4) and the batched RMW --
+    # (dp 2 x rows 2), against the unsharded reads and rmw_batch
+    batch8 = big_reads + big_more
+    for idx in big_more:
+        big_out[idx] = bserver.read(bstate, baddrs[idx][1])
+    coords8 = stack_addresses([baddrs[i][1] for i in batch8])
+    want8 = torch.stack([big_out[i] for i in batch8])
+    bcache = mesh_mod.sharded_spectral_cache_fn(BPAR, bmesh)(bshards)
+    shbatch_launches = dict.fromkeys(ntt_cuda.LAUNCHES, 0)
+    torch.cuda.reset_peak_memory_stats()
+    sb_ms, sb_launches = {}, {}
+    for with_cache in (False, True):
+        fn = mesh_mod.batched_read_fn(BPAR, bmesh, with_cache=with_cache)
+        key = "cached" if with_cache else "uncached"
+        sb_ms[key] = []
+        for _ in range(2):
+            outs, ms, delta = counted(lambda: fn(
+                bshards, mesh_mod.shard_addr_batch(bmesh, coords8), batk,
+                bcache if with_cache else None), shbatch_launches)
+            expect_launches(f"sharded batched read ({key})", delta,
+                            fused_external_fold_batched=2 * n4,
+                            ntt_fwd=0 if with_cache else n4,
+                            fused_pack_merge=LV * n4, fused_trace=n4,
+                            ring_all_gather=1)
+            same_on_every_shard(outs[0], want8, f"sharded batched read ({key})")
+            sb_ms[key].append(ms)
+            del outs
+        sb_launches[key] = delta
+    batch_read_peak = torch.cuda.max_memory_allocated()
+    del bcache
+    mesh22 = mesh_mod.make_mesh(DP_RMW * ROWS_RMW, rows=ROWS_RMW,
+                                devices=[dev] * (DP_RMW * ROWS_RMW))
+    shards22 = mesh_mod.shard_data_rows(mesh22, bstate.data)
+    rb_addrs = [baddress(i) for i in big_rmw]
+    rb_coeff = stack_addresses([a for a, _ in rb_addrs])
+    rb_prep = stack_addresses([p_ for _, p_ in rb_addrs])
+    rb_words = np.random.default_rng(args.seed + 27).integers(
+        0, 256, size=(NB_BIG_RMW, BW)).astype(np.uint8)
+    rb_w = torch.stack([ram_mod.encrypt_write_word(BPAR, bctx, bs_ntt, w_, bsrc)
+                        for w_ in rb_words])
+    rmw22 = mesh_mod.batched_rmw_fn(BPAR, mesh22)
+
+    def rmw22_call():
+        return rmw22(shards22, mesh_mod.shard_addr_batch(mesh22, rb_prep),
+                     mesh_mod.shard_addr_batch(mesh22, rb_coeff),
+                     mesh_mod.shard_addr_batch(mesh22, rb_w), bkeys)
+    (rb_outs, rb_new), rb_ms, rb_l = counted(rmw22_call, shbatch_launches)
+    cells = DP_RMW * ROWS_RMW
+    expect_launches("sharded batched RMW", rb_l,
+                    fused_external_fold_batched=4 * cells,
+                    fused_external_fold=4 * cells, ntt_fwd=3 * cells,
+                    fused_pack_merge=LV * cells, fused_trace=cells,
+                    fused_split=LV * cells, ring_all_gather=DP_RMW)
+    rb_peak = torch.cuda.max_memory_allocated()
+    (u_outs, u_state), u_rb_ms = timed(
+        lambda: bserver.rmw_batch(bstate, rb_prep, rb_coeff, rb_w))
+    for k in range(ROWS_RMW):
+        if not torch.equal(torch.cat([o[k] for o in rb_outs]), u_outs):
+            fail(f"sharded batched RMW: shard {k}'s read-outs differ from rmw_batch")
+    if not torch.equal(mesh_mod.unshard_rows(rb_new), u_state.data):
+        fail("sharded batched RMW: the new RAM differs from rmw_batch's")
+    worst_sb = -1e9
+    rb_plain = bdata.copy()
+    for k, idx in enumerate(big_rmw):
+        worst_sb = max(worst_sb, bdecode(u_outs[k], idx, "sharded batched RMW read-out",
+                                         bdata))
+        rb_plain[idx * BW: (idx + 1) * BW] = rb_words[k]
+    back = bserver.read_batch(u_state, rb_prep)
+    for k, idx in enumerate(big_rmw):
+        worst_sb = max(worst_sb, bdecode(back[k], idx, "sharded batched RMW read-back",
+                                         rb_plain))
+    del u_outs, u_state, back
+    # the same call through the plain versions: holds every kernel of the
+    # path at its shapes here (split over thousands of pairs a level, the
+    # batched fold over 2048-row shards at 2 items, the write's folds and
+    # transforms); the unsharded rmw_batch equals it by the check above
+    plain_rb_ms = equal_to_plain((rb_outs, rb_new), rmw22_call,
+                                 "sharded batched RMW")
+    del rb_outs, rb_new, shards22
+    emit({"phase": "sharded_batch", "ok": True,
+          "batched_read": {"mesh": bmesh.shape, "batch": BIG_BATCH_READ,
+                           "addresses": batch8, "equal_to_single_reads": True},
+          "sharded_batch_ms": {k: statistics.median(v) for k, v in sb_ms.items()},
+          "sharded_batch_ms_all": sb_ms,
+          "batched_rmw": {"mesh": mesh22.shape, "batch": NB_BIG_RMW,
+                          "addresses": big_rmw,
+                          "equal_to_rmw_batch": "read-outs and all of the new RAM"},
+          "sharded_rmw_batch_ms": rb_ms, "unsharded_rmw_batch_ms": u_rb_ms,
+          "worst_noise_log2": worst_sb,
+          "peak_device_bytes_batched_read": batch_read_peak,
+          "peak_device_bytes_batched_rmw": rb_peak,
+          "launches": {"batched_read": sb_launches, "batched_rmw": rb_l}})
+    emit({"phase": "sharded_rmw_batch_vs_plain", "ok": True, "mesh": mesh22.shape,
+          "batch": NB_BIG_RMW, "addresses": big_rmw,
+          "compared": "every dp replica's read-outs on every rows shard and every "
+                      "new data shard",
+          "plain_sharded_rmw_batch_ms": plain_rb_ms})
+
+    # ---- sharded_rmw: 2 chained sharded_rmw_fn cycles, then one ------------
+    # sharded_rpw_fn + sharded_write_fn pair, each against the unsharded cycle
+    rmw_fn = mesh_mod.sharded_rmw_fn(BPAR, bmesh)
+    rpw_fn = mesh_mod.sharded_rpw_fn(BPAR, bmesh)
+    write_fn = mesh_mod.sharded_write_fn(BPAR, bmesh)
+    cyc_words = np.random.default_rng(args.seed + 28).integers(
+        0, 256, size=(3, BW)).astype(np.uint8)
+    cyc_in = [(baddress(idx), ram_mod.encrypt_write_word(BPAR, bctx, bs_ntt, cyc_words[k],
+                                                         bsrc))
+              for k, idx in enumerate(big_cycles)]
+    shards, ustate, plain = bshards, bstate, bdata.copy()
+    srmw_launches = dict.fromkeys(ntt_cuda.LAUNCHES, 0)
+    srmw_ms, worst_sr, pair, rmw_l, first = [], -1e9, {}, None, None
+    for k, idx in enumerate(big_cycles):
+        (coeff, prep), w_ct = cyc_in[k]
+        if k < 2:
+            (outs, new_sh), ms, delta = counted(lambda: rmw_fn(
+                shards, prep.coordinates, coeff.coordinates, w_ct, bkeys),
+                srmw_launches)
+            expect_launches(f"sharded RMW at {idx}", delta,
+                            fused_external_fold=8 * n4, fused_pack_merge=LV * n4,
+                            fused_trace=n4, ntt_fwd=2 * n4, fused_split=LV * n4,
+                            ring_all_gather=1)
+            srmw_ms.append(ms)
+            rmw_l = delta
+            if k == 0:
+                first = (outs, new_sh)
+            if any(not torch.equal(o, outs[0]) for o in outs):
+                fail(f"sharded RMW at {idx}: the shards' read-outs differ")
+        else:
+            (outs, roots), pair["rpw_ms"], l_rpw = counted(
+                lambda: rpw_fn(shards, prep.coordinates, batk), srmw_launches)
+            new_sh, pair["write_ms"], l_wr = counted(
+                lambda: write_fn(shards, roots, w_ct, coeff.coordinates, bkeys),
+                srmw_launches)
+            expect_launches(f"sharded rpw at {idx}", l_rpw,
+                            fused_external_fold=2 * n4, fused_pack_merge=LV * n4,
+                            fused_trace=n4, ring_all_gather=1)
+            expect_launches(f"sharded write at {idx}", l_wr, fused_trace=n4,
+                            fused_external_fold=6 * n4, ntt_fwd=2 * n4,
+                            fused_split=LV * n4)
+            pair["launches"] = {"rpw": l_rpw, "write": l_wr}
+        (u_out, u_pending), u_rpw = timed(lambda: bserver.read_prepare_write(ustate, prep))
+        u_next, u_wr = timed(lambda: bserver.write(u_pending, w_ct, coeff))
+        if k == 2:
+            same_on_every_shard(outs, u_out, f"sharded rpw at {idx}")
+            pair["unsharded_rpw_plus_write_ms"] = u_rpw + u_wr
+        if not torch.equal(mesh_mod.unshard_rows(new_sh), u_next.data):
+            fail(f"sharded {'RMW' if k < 2 else 'rpw + write'} at {idx}: the new "
+                 "RAM differs from the unsharded rpw + write")
+        worst_sr = max(worst_sr, bdecode(outs[0], idx, "sharded RMW read-out", plain))
+        plain[idx * BW: (idx + 1) * BW] = cyc_words[k]
+        shards, ustate = new_sh, u_next
+        del outs, u_out, u_pending
+    # read back through the sharded read: the three new words, and two of
+    # the read phase's addresses, which no cycle wrote
+    back_fn = mesh_mod.sharded_read_fn(BPAR, bmesh)
+    preps = {idx: cyc_in[k][0][1] for k, idx in enumerate(big_cycles)}
+    for idx in big_cycles + big_reads[:2]:
+        prep = preps[idx] if idx in preps else baddrs[idx][1]
+        outs = back_fn(shards, prep.coordinates, batk)
+        worst_sr = max(worst_sr, bdecode(outs[0], idx, "sharded RMW read-back", plain))
+    del shards, ustate, outs
+    emit({"phase": "sharded_rmw", "ok": True, "mesh": bmesh.shape,
+          "addresses": big_cycles, "unchanged_addresses": big_reads[:2],
+          "equal_to_unsharded_rpw_plus_write": "all of the new RAM, every cycle",
+          "sharded_rmw_ms": statistics.median(srmw_ms), "sharded_rmw_ms_all": srmw_ms,
+          "rpw_write_pair": pair, "worst_noise_log2": worst_sr,
+          "noise_bound_log2": -(BPAR.k_pt + 1), "launches_per_rmw": rmw_l})
+
+    # ---- sharded_rmw_vs_plain: the first cycle through the plain versions ---
+    # (the full-gadget folds over 4096-row shards, the split over thousands
+    # of pairs a level, the transforms of the write); the unsharded rpw +
+    # write equals the kernels' cycle by the check above
+    (coeff, prep), w_ct = cyc_in[0]
+    plain_sr_ms = equal_to_plain(first, lambda: rmw_fn(
+        bshards, prep.coordinates, coeff.coordinates, w_ct, bkeys), "sharded RMW")
+    emit({"phase": "sharded_rmw_vs_plain", "ok": True, "address": big_cycles[0],
+          "compared": f"every shard's read-out and all {n4} new data shards",
+          "plain_sharded_rmw_ms": plain_sr_ms})
+    del first
+
+    # ---- sharded_vs_plain: one sharded read, kernels against plain versions --
+    idx = big_reads[0]
+    sread = mesh_mod.sharded_read_fn(BPAR, bmesh, "ring")
+    k_outs = sread(bshards, baddrs[idx][1].coordinates, batk)
+    with ntt_cuda.plain_versions():
+        p_outs, plain_sh_ms = timed(lambda: sread(bshards, baddrs[idx][1].coordinates,
+                                                  batk))
+    for k, (a, b) in enumerate(zip(k_outs, p_outs)):
+        if not torch.equal(a, b):
+            fail(f"sharded read: shard {k}'s output, kernels and plain versions disagree")
+    emit({"phase": "sharded_vs_plain", "ok": True, "address": idx,
+          "compared": f"every shard's read, collectives included ({n4} shards)",
+          "plain_sharded_read_ms": plain_sh_ms})
+    del k_outs, p_outs
+    for name, notes in seen_coll.items():
+        checked = {r["shape"] for r in checks.get(name, [])}
+        if not notes or not notes <= checked:
+            fail(f"{name}: the paths launched shapes {sorted(notes - checked)} "
+                 "that no kernel check held against the plain version")
+
     # ---- optional: where the time of one call of each path goes -------------
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -1212,36 +1646,51 @@ def main():
                statistics.median(cyc["tree_write"]))
         traced("vm_cycle", lambda: vm_cycle(VPAR, vctx, vkeys, data=st_l, **enc_l),
                statistics.median(vm_ms))
+        bap = baddrs[big_reads[0]][1]
+        traced("read at 2^24", lambda: bserver.read(bstate, bap),
+               statistics.median(big_ms))
+        traced(f"sharded read at 2^24, rows {n4}, ring",
+               lambda: sread(bshards, bap.coordinates, batk),
+               statistics.median(sh_ms["ring"]))
+        (coeff, prep), w_ct = cyc_in[0]
+        traced(f"sharded RMW at 2^24, rows {n4}",
+               lambda: rmw_fn(bshards, prep.coordinates, coeff.coordinates, w_ct,
+                              bkeys),
+               statistics.median(srmw_ms))
 
     # ---- the kernels' line --------------------------------------------------
-    # launches over the five paths, each counted from 0 just before it was
+    # launches over the nine paths, each counted from 0 just before it was
     # driven to just after (comparisons and read-backs are outside)
-    total_launches = {k: path_launches[k] + rmw_launches[k] + batch_launches[k]
-                      + rmw_batch_launches[k] + vm_launches[k] for k in path_launches}
+    by_path = {"read": path_launches, "rmw": rmw_launches,
+               "read_batch": batch_launches, "rmw_batch": rmw_batch_launches,
+               "vm_cycle": vm_launches, "read_2_24": read24_launches,
+               "sharded_read": shread_launches, "sharded_batch": shbatch_launches,
+               "sharded_rmw": srmw_launches}
+    total_launches = {k: sum(p_[k] for p_ in by_path.values()) for k in path_launches}
     for k, v in total_launches.items():
         if v == 0:
             fail(f"kernel {k} was launched on none of the paths")
 
     def entry(name, source, replaces, shape_idx, bytes_moved=None, ops=None):
         """The kernel's line at one of its checked shapes; the bound from
-        the work given here, else from the check's own."""
+        the work given here, else from the check's own.  replaces: a line of
+        ops/ntt_pallas.py, or file:line of the JAX package."""
         rec = checks[name][shape_idx]
         if bytes_moved is None:
             b_ms, b_by = rec["bound_ms"], rec["bound_by"]
         else:
             b_ms, b_by = bound(bytes_moved, ops)
+        if isinstance(replaces, int):
+            replaces = f"ops/ntt_pallas.py:{replaces}"
         out = {"name": name, "route": "cuda",
                "source": f"fhe_ram_tpu_torch/csrc/{source}",
-               "replaces": f"fhe_ram_tpu/ops/ntt_pallas.py:{replaces}",
+               "replaces": f"fhe_ram_tpu/{replaces}",
                "shape": rec["shape"], "launches": total_launches[name],
-               "launches_by_path": {"read": path_launches[name],
-                                    "rmw": rmw_launches[name],
-                                    "read_batch": batch_launches[name],
-                                    "rmw_batch": rmw_batch_launches[name],
-                                    "vm_cycle": vm_launches[name]},
+               "launches_by_path": {p_: c_[name] for p_, c_ in by_path.items()},
                "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": rec.get("library_ms")}
         if "per_level_ms" in rec:
             out["per_level_ms"] = rec["per_level_ms"]
         return out
@@ -1290,8 +1739,16 @@ def main():
         entry("fused_bitwise", "bitwise.cu", 2221, 0),
         entry("fused_blind_rotate", "blind_rotate.cu", 2320, 0),
         entry("fused_dp_chain", "dp_chain.cu", 2377, 0),
+        # the collectives at the single read's root on the driven mesh
+        # (rows 4); every checked shape in per_shape
+        entry("ring_all_gather", "collective.cu", "parallel/collective.py:77", 1),
+        entry("exchange", "collective.cu", "parallel/collective.py:132", 0),
     ]
     for k in kernels:
+        if k["name"] in COLLECTIVES:
+            k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",
+                                                "library_ms", "bound_ms")}
+                              for r in checks[k["name"]]]
         if k["name"] in VM_KERNELS:
             k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",
                                                 "bound_ms", "bound_by")}

@@ -16,6 +16,9 @@ Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Eleven kernels (csrc/):
   fused_dp_chain                the VM's carry-DP chain        (dp_chain.cu)
   fused_bitwise                 the VM's bitwise group         (bitwise.cu)
 
+and the two collectives of the row-sharded pack, whose wrappers live in
+parallel/collective.py (collective.cu): ring_all_gather, exchange.
+
 Build: one `nvcc -shared` per source for sm_90a, all started together,
 into `<package>/build/` at first use; plain C entry points bound with
 ctypes.  Nothing is compiled when this module is imported.
@@ -53,11 +56,12 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 SOURCES = ("ntt", "fold", "trace", "pack_merge", "split", "split_tree",
-           "pack_tree", "blind_rotate", "dp_chain", "bitwise")
+           "pack_tree", "blind_rotate", "dp_chain", "bitwise", "collective")
 
 _MAX_L = 8        # FHE_MAX_L of csrc/fhe_core.cuh
 _MAX_STEPS = 16   # FHE_MAX_STEPS: steps of a trace launch, levels of a tree launch
 _MAX_OPS = 16     # FHE_MAX_OPS of csrc/dp_chain.cu, bitwise.cu: ops of a VM group
+MAX_SHARDS = 16   # FHE_MAX_SHARDS of csrc/collective.cu: shards of a collective
 _MAX_SMEM = 232448  # bytes of shared memory one block can use on sm_90
 # Rows up to which a launch gives each row a cluster of 6 resp. 3 blocks
 # (timed on an H100 with tools/time_fold_chunks.py: at T = 2, M = 6 a
@@ -75,7 +79,7 @@ LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "fused_external_fold": 0,
             "fused_external_fold_batched": 0, "fused_trace": 0,
             "fused_pack_merge": 0, "fused_split": 0, "fused_split_tree": 0,
             "fused_pack_tree": 0, "fused_blind_rotate": 0, "fused_dp_chain": 0,
-            "fused_bitwise": 0}
+            "fused_bitwise": 0, "ring_all_gather": 0, "exchange": 0}
 
 _force_plain = False
 _libs = None
@@ -142,6 +146,13 @@ class _DpTables(ctypes.Structure):
 
 class _OpGroups(ctypes.Structure):
     _fields_ = [("count", ctypes.c_int), ("group", ctypes.c_int * _MAX_OPS)]
+
+
+class ShardPtrs(ctypes.Structure):
+    """csrc/collective.cu's pointer table: one input and one output
+    pointer a shard."""
+    _fields_ = [("inp", ctypes.c_void_p * MAX_SHARDS),
+                ("out", ctypes.c_void_p * MAX_SHARDS)]
 
 
 def _find_nvcc() -> str:
@@ -214,6 +225,9 @@ def build_kernels(verbose: bool = False):
         ("bitwise", "fhe_bitwise_blocks"): [_FoldShape, ci, cip],
         ("bitwise", "fhe_bitwise"): [vp, vp, vp, vp, vp, vp, vp, ci, _OpGroups,
                                      ci, ci, ci, _FoldShape, _Consts, _Tables, vp],
+        ("collective", "fhe_ring_all_gather"): [ShardPtrs, ci, ctypes.c_longlong,
+                                                vp],
+        ("collective", "fhe_exchange"): [ShardPtrs, ci, ci, ctypes.c_longlong, vp],
     }
     for (lib, fn), argtypes in sigs.items():
         f = getattr(libs[lib], fn)

@@ -27,12 +27,13 @@ def test_port_has_the_expected_layout():
                  "core/noise.py", "utils/io.py", "utils/profiling.py",
                  "ram/address.py", "ram/ram.py", "tools/time_fold_chunks.py",
                  "vm/fheuint.py", "vm/circuits.py", "vm/arithmetic.py",
-                 "vm/store.py", "vm/conversion.py", "vm/cycle.py"):
+                 "vm/store.py", "vm/conversion.py", "vm/cycle.py",
+                 "parallel/collective.py", "parallel/mesh.py"):
         assert want in names, want
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "fhe_core.cuh", "ntt.cu", "fold.cu", "trace.cu", "pack_merge.cu",
         "split.cu", "split_tree.cu", "pack_tree.cu", "blind_rotate.cu",
-        "dp_chain.cu", "bitwise.cu"}
+        "dp_chain.cu", "bitwise.cu", "collective.cu"}
     # every source the build names is there, and nothing is left unnamed
     from fhe_ram_tpu_torch.ops import ntt_cuda
     assert {f"{s}.cu" for s in ntt_cuda.SOURCES} == {
@@ -41,7 +42,8 @@ def test_port_has_the_expected_layout():
         "ntt_fwd", "ntt_inv", "fused_external_fold",
         "fused_external_fold_batched", "fused_trace", "fused_pack_merge",
         "fused_split", "fused_split_tree", "fused_pack_tree",
-        "fused_blind_rotate", "fused_dp_chain", "fused_bitwise"}
+        "fused_blind_rotate", "fused_dp_chain", "fused_bitwise",
+        "ring_all_gather", "exchange"}
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -64,6 +66,9 @@ def test_importing_the_port_loads_no_jax():
         "from fhe_ram_tpu_torch.utils import io, profiling\n"
         "from fhe_ram_tpu_torch.tools import time_fold_chunks\n"
         "from fhe_ram_tpu_torch.vm import fheuint, circuits, arithmetic, store, conversion, cycle\n"
+        "from fhe_ram_tpu_torch.parallel import collective, mesh\n"
+        "assert callable(collective.ring_all_gather) and callable(collective.exchange)\n"
+        "assert callable(mesh.sharded_read_fn) and callable(mesh.batched_rmw_fn)\n"
         "assert callable(cycle.vm_cycle) and callable(ntt_cuda.fused_dp_chain)\n"
         "assert callable(ram.FheRam.write) and callable(ram.FheRam.read_batch)\n"
         "assert callable(ram.FheRam.rmw_batch) and callable(ram.rmw_batch_impl)\n"

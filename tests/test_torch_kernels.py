@@ -94,21 +94,52 @@ def _jprep(jctx, ks):
     return {g: jks.key_prepare(jctx, k) for g, k in ks.items()}
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_external_product_matches_jax(case):
-    jpar, tpar, B = CASES[case]
+_ALL_CASES = {}
+
+
+def _jax_at_every_case(name, inputs, jax_fn):
+    """A parametrised test's JAX outputs at every CASES entry, from ONE
+    jitted function (one compile instead of one a case), computed once a
+    module.  inputs(case) -> the case's arrays (numpy, in jax_fn's order);
+    jax_fn(jpar, jctx, *arrays) -> the JAX output."""
+    if name not in _ALL_CASES:
+        # the contexts are made (and cached) outside the trace
+        ctxs = {case: _both_ctx(CASES[case][0])[0] for case in CASES}
+
+        def every(args):
+            return {case: jax_fn(CASES[case][0], ctxs[case], *a)
+                    for case, a in args.items()}
+
+        args = {case: tuple(jnp.asarray(x) for x in inputs(case)) for case in CASES}
+        _ALL_CASES[name] = {case: np.asarray(out)
+                            for case, out in _jit(every)(args).items()}
+    return _ALL_CASES[name]
+
+
+def _external_product_inputs(case):
+    jpar, _, B = CASES[case]
     rnd = np.random.default_rng(1)
-    jctx, tctx = _both_ctx(jpar)
     C = jpar.rank + 1
     gg = rnd.integers(-(1 << 16), 1 << 16, size=(
         jpar.dnum_ct, C, C, jpar.limbs_ggsw, jpar.n)).astype(np.int32)
-    ct = _ct(rnd, jpar, (B,))
+    return _ct(rnd, jpar, (B,)), gg
+
+
+def _external_product_jax(jpar, jctx, c, k):
+    D, Lg = jpar.read_ep_trunc
+    return jggsw.external_product(jpar, jctx, c,
+                                  jggsw.prepare(jctx, k)[:, :D][..., :Lg, :])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_external_product_matches_jax(case):
+    jpar, tpar, B = CASES[case]
+    _, tctx = _both_ctx(jpar)
+    ct, gg = _external_product_inputs(case)
     D, Lg = jpar.read_ep_trunc
     tg = tggsw.prepare(tctx, _t(gg))[:, :D][..., :Lg, :]
-    want = np.asarray(_jit(
-        lambda c, k: jggsw.external_product(
-            jpar, jctx, c, jggsw.prepare(jctx, k)[:, :D][..., :Lg, :]))(
-            jnp.asarray(ct), jnp.asarray(gg)))
+    want = _jax_at_every_case("external_product", _external_product_inputs,
+                              _external_product_jax)[case]
     got = tggsw.external_product(tpar, tctx, _t(ct), tg).numpy()
     assert got.dtype == np.int32 and np.array_equal(got, want)
 
@@ -146,41 +177,58 @@ def test_coordinate_product_digit_chain_matches_jax():
     assert np.array_equal(got, want)
 
 
+def _keyswitch_inputs(case):
+    jpar, _, B = CASES[case]
+    rnd = np.random.default_rng(4)
+    key = _atk(rnd, jpar, (3,))[3]
+    return _ct(rnd, jpar, (B,)), key, _ct(rnd, jpar, (B,), bits=17)
+
+
+def _keyswitch_jax(jpar, jctx, c, k, b):
+    D, Lk = jpar.read_ks_trunc
+    return jks.keyswitch(jpar, jctx, c, jks.key_prepare(jctx, k), base_add=b,
+                         in_digits=D, key_limbs=Lk)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_keyswitch_with_base_add_matches_jax(case):
     jpar, tpar, B = CASES[case]
-    rnd = np.random.default_rng(4)
-    jctx, tctx = _both_ctx(jpar)
-    atk = _atk(rnd, jpar, (3,))
-    jk, tk = _prepare_both(jctx, tctx, atk)
-    ct, base = _ct(rnd, jpar, (B,)), _ct(rnd, jpar, (B,), bits=17)
+    _, tctx = _both_ctx(jpar)
+    ct, key, base = _keyswitch_inputs(case)
     D, Lk = jpar.read_ks_trunc
-    want = np.asarray(_jit(lambda c, k, b: jks.keyswitch(
-        jpar, jctx, c, _jprep(jctx, k)[3], base_add=b, in_digits=D, key_limbs=Lk))(
-            jnp.asarray(ct), jk, jnp.asarray(base)))
-    got = tks.keyswitch(tpar, tctx, _t(ct), tk[3], base_add=_t(base),
-                        in_digits=D, key_limbs=Lk).numpy()
+    want = _jax_at_every_case("keyswitch", _keyswitch_inputs, _keyswitch_jax)[case]
+    got = tks.keyswitch(tpar, tctx, _t(ct), tks.key_prepare(tctx, _t(key)),
+                        base_add=_t(base), in_digits=D, key_limbs=Lk).numpy()
     assert np.array_equal(got, want)
+
+
+def _merge_level_inputs(case):
+    jpar, _, B = CASES[case]
+    rnd = np.random.default_rng(5)
+    g = (jpar.n >> 3) + 1
+    key = _atk(rnd, jpar, (g,))[g]
+    return (_ct(rnd, jpar, (B,), bits=17), _ct(rnd, jpar, (B,), bits=17), key)
+
+
+def _merge_level_jax(jpar, jctx, a, b, k):
+    t, g = 1 << 3, (jpar.n >> 3) + 1
+    return jpacker._merge_level(jpar, jctx, a, b, t, g, jks.key_prepare(jctx, k),
+                                trunc=jpar.read_ks_trunc)
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_merge_level_matches_jax(case):
     """Unnormalized inputs up to 2^17, as the first merge level gets them
-    from the pre-shift (u, v reach 2^18)."""
+    from the pre-shift (u, v reach 2^18); level 3: t = 8."""
     jpar, tpar, B = CASES[case]
-    rnd = np.random.default_rng(5)
-    jctx, tctx = _both_ctx(jpar)
-    l = 3
-    t, g = 1 << l, (jpar.n >> l) + 1
-    atk = _atk(rnd, jpar, (g,))
-    jk, tk = _prepare_both(jctx, tctx, atk)
-    A, Bc = _ct(rnd, jpar, (B,), bits=17), _ct(rnd, jpar, (B,), bits=17)
-    trunc = jpar.read_ks_trunc
-    want = np.asarray(_jit(lambda a, b, k: jpacker._merge_level(
-        jpar, jctx, a, b, t, g, _jprep(jctx, k)[g], trunc=trunc))(
-            jnp.asarray(A), jnp.asarray(Bc), jk))
-    got = tpacker._merge_level(tpar, tctx, _t(A), _t(Bc), t, g, tk[g],
-                               trunc=trunc).numpy()
+    _, tctx = _both_ctx(jpar)
+    A, Bc, key = _merge_level_inputs(case)
+    t, g = 1 << 3, (jpar.n >> 3) + 1
+    want = _jax_at_every_case("merge_level", _merge_level_inputs,
+                              _merge_level_jax)[case]
+    got = tpacker._merge_level(tpar, tctx, _t(A), _t(Bc), t, g,
+                               tks.key_prepare(tctx, _t(key)),
+                               trunc=jpar.read_ks_trunc).numpy()
     assert np.array_equal(got, want)
 
 
@@ -210,15 +258,18 @@ def test_pack_and_full_trace_match_jax():
     jk, tk = _prepare_both(jctx, tctx, _atk(rnd, jpar, jpar.trace_gal_els))
     cts = _ct(rnd, jpar, (8, 2))
     trunc = jpar.read_ks_trunc
-    want = np.asarray(_jit(lambda c, k: jpacker.pack(
-        jpar, jctx, c, _jprep(jctx, k), trunc=trunc))(
-            jnp.asarray(cts), jk))
+
+    def pack_then_trace(c, k):   # one compile: the two share the keys
+        kp = _jprep(jctx, k)
+        packed = jpacker.pack(jpar, jctx, c, kp, trunc=trunc)
+        return packed, jks.trace(jpar, jctx, packed, kp, trunc=trunc)
+
+    want_pack, want_trace = (np.asarray(a) for a in _jit(pack_then_trace)(
+        jnp.asarray(cts), jk))
     got = tpacker.pack(tpar, tctx, _t(cts), tk, trunc=trunc)
-    assert np.array_equal(got.numpy(), want)
-    want = np.asarray(_jit(lambda c, k: jks.trace(
-        jpar, jctx, c, _jprep(jctx, k), trunc=trunc))(
-            jnp.asarray(want), jk))
-    assert np.array_equal(tks.trace(tpar, tctx, got, tk, trunc=trunc).numpy(), want)
+    assert np.array_equal(got.numpy(), want_pack)
+    assert np.array_equal(tks.trace(tpar, tctx, got, tk, trunc=trunc).numpy(),
+                          want_trace)
 
 
 def test_fold_sign_and_base_against_composed_pieces():

@@ -11,9 +11,11 @@ word across.  The port's FheRam.read equals read_impl, read_prepare_write
 equals rpw_impl, write equals write_impl, read_batch equals
 read_batch_impl and rmw_batch equals rmw_batch_impl bit for bit (np.array_equal; integer arithmetic,
 tolerance 0), and the port's own decrypt recovers the JAX client's
-plaintext under the noise bound.  One JAX client serves all tests of the
-file (a second one would cost ~25 s of compiles).  The other geometries
-are compared in tests/test_torch_read_presets.py."""
+plaintext under the noise bound; so do the port's row-sharded read and
+read-modify-write (parallel/mesh.py).  One JAX client serves all tests of
+the file, and each JAX output is computed once and read by every test that
+needs it.  The other geometries are compared in
+tests/test_torch_read_presets.py."""
 
 import functools
 from types import SimpleNamespace
@@ -40,6 +42,7 @@ from fhe_ram_tpu_torch.core import glwe as tglwe
 from fhe_ram_tpu_torch.core import keys as tkeys
 from fhe_ram_tpu_torch.ram import address as taddress
 from fhe_ram_tpu_torch.ram import ram as tram
+from fhe_ram_tpu_torch.parallel import mesh as tmesh
 
 # one intra-op thread: the suite runs several workers side by side, and
 # these sizes gain nothing from more
@@ -58,6 +61,25 @@ def _addresses(par):
     return [0, 1, par.max_addr // 2 + 3, par.max_addr - 1]
 
 
+# the word the write tests write at the third fixture address
+WRITE_WORD = np.array([0x5A, 0xC3, 0x17, 0x80], dtype=np.uint8)
+
+
+def _keygen(jpar, jctx, sk, src):
+    """(secret_prepare, jkeys.keygen) under one jit: the same keys and the
+    same stream state as the eager calls (threefry is deterministic), in
+    a third of their time (eager JAX compiles op by op)."""
+    def keygen(sk, stream_keys):
+        source = jrng.Source.__new__(jrng.Source)
+        source._keys = stream_keys
+        ek = jkeys.keygen(jpar, sk, source)
+        return (jglwe.secret_prepare(jctx, sk),
+                (ek.atk_glwe, ek.atk_ggsw, ek.tsk), source._keys)
+
+    s_ntt, (atk, atk_ggsw, tsk), src._keys = _jit(keygen)(sk, src._keys)
+    return s_ntt, jkeys.EvaluationKeys(atk, atk_ggsw, tsk)
+
+
 @pytest.fixture(scope="module")
 def client():
     """The JAX client's secret, keys, RAM and addresses, the JAX side's
@@ -67,8 +89,7 @@ def client():
     jctx = jget_ctx(jpar.n, jpar.primes)
     src = jrng.Source(7)
     sk = jrng.ternary_secret(src.split(), jpar.rank, jpar.n, jpar.xs_density)
-    js_ntt = _jit(lambda s: jglwe.secret_prepare(jctx, s))(sk)
-    ek = jkeys.keygen(jpar, sk, src)
+    js_ntt, ek = _keygen(jpar, jctx, sk, src)
     data = np.random.default_rng(11).integers(
         0, 256, size=jpar.max_addr * jpar.word_size).astype(np.uint8)
     ram_ct = jram.encrypt_ram(jpar, jctx, js_ntt, data, src)
@@ -78,18 +99,21 @@ def client():
     def prepared(atk, atk_ggsw, tsk):
         return jkeys.prepare(jpar, jkeys.EvaluationKeys(atk, atk_ggsw, tsk))
 
-    # read_impl and rpw_impl in ONE jitted function: at this preset (no
-    # read-path truncation) they share everything but the persisted tree,
-    # and XLA merges what is common
-    def read_and_rpw(d, a, atk, atk_ggsw, tsk):
-        k = prepared(atk, atk_ggsw, tsk).atk_glwe
+    # read_impl, rpw_impl and write_impl (of w_ct after that rpw) in ONE
+    # jitted function: at this preset (no read-path truncation) the read and
+    # the rpw share everything but the persisted tree, the three share the
+    # key preparation, and one compile costs less than two (the write runs
+    # at every address; at this size that is milliseconds)
+    def read_rpw_write(d, a, w, atk, atk_ggsw, tsk):
+        keys = prepared(atk, atk_ggsw, tsk)
         coords = jaddress.prepare(jctx, a).coordinates
-        return (jram.read_impl(jpar, jctx, d, coords, k),
-                jram.rpw_impl(jpar, jctx, d, coords, k))
+        rpw = jram.rpw_impl(jpar, jctx, d, coords, keys.atk_glwe)
+        return (jram.read_impl(jpar, jctx, d, coords, keys.atk_glwe), rpw,
+                jram.write_impl(jpar, jctx, d, rpw[2], w, a.coordinates, keys))
 
-    jread_rpw = _jit(read_and_rpw)
-    jwrite = _jit(lambda d, tree, w, a, atk, atk_ggsw, tsk: jram.write_impl(
-        jpar, jctx, d, tree, w, a.coordinates, prepared(atk, atk_ggsw, tsk)))
+    jread_rpw_write = _jit(read_rpw_write)
+    w_ct = jram.encrypt_write_word(jpar, jctx, js_ntt,
+                                   WRITE_WORD[:jpar.word_size], src)
     jkey_args = (ek.atk_glwe, ek.atk_ggsw, ek.tsk)
 
     tctx = tget_ctx(tpar.n, tpar.primes)
@@ -97,16 +121,25 @@ def client():
     server = tram.FheRam(tpar, tkeys.prepare(tpar, carried.keys), device="cpu")
     c = SimpleNamespace(
         jpar=jpar, tpar=tpar, jctx=jctx, tctx=tctx, src=src, js_ntt=js_ntt,
-        ek=ek, data=data, ram_ct=ram_ct, addrs=addrs, jread_rpw=jread_rpw,
-        jwrite=jwrite, jkey_args=jkey_args, carried=carried, server=server,
+        ek=ek, data=data, ram_ct=ram_ct, addrs=addrs, w_ct=w_ct,
+        jkey_args=jkey_args, carried=carried, server=server,
         s_ntt=tglwe.secret_prepare(tctx, carried.sk), jresults={})
 
-    def jax_read_rpw(idx):
-        """(read_impl output, rpw_impl output) at a fixture address,
-        computed once."""
+    def jax_refs(idx):
+        """(read_impl output, rpw_impl output, write_impl's new RAM for
+        w_ct after that rpw) at a fixture address, computed once."""
         if idx not in c.jresults:
-            c.jresults[idx] = jread_rpw(ram_ct, addrs[idx], *jkey_args)
+            c.jresults[idx] = jread_rpw_write(ram_ct, addrs[idx], w_ct,
+                                              *jkey_args)
         return c.jresults[idx]
+
+    def jax_read_rpw(idx):
+        return jax_refs(idx)[:2]
+
+    def jax_write():
+        """(the JAX client's write word w_ct, write_impl's new RAM) when
+        WRITE_WORD is written at the third fixture address."""
+        return w_ct, np.asarray(jax_refs(_addresses(jpar)[2])[2])
 
     def port_address(idx):
         """(Address, AddressPrepared) of the port for a fixture address."""
@@ -121,7 +154,8 @@ def client():
                 tpar, tglwe.phase(tpar, tctx, c.s_ntt, out[i]), word)
             assert int(val) == word and noise < -(tpar.k_pt + 1), (idx, i)
 
-    c.jax_read_rpw, c.port_address, c.check_word = jax_read_rpw, port_address, check_word
+    c.jax_read_rpw, c.jax_write = jax_read_rpw, jax_write
+    c.port_address, c.check_word = port_address, check_word
     return c
 
 
@@ -178,11 +212,8 @@ def test_write_matches_jax_on_the_jax_clients_ciphertexts(client):
     the new word and two other addresses to their old ones."""
     c = client
     idx, others = _addresses(c.jpar)[2], _addresses(c.jpar)[:2]
-    new_word = np.array([0x5A, 0xC3, 0x17, 0x80], dtype=np.uint8)[:c.jpar.word_size]
-    w_ct = jram.encrypt_write_word(c.jpar, c.jctx, c.js_ntt, new_word, c.src)
-    _, (_, _, want_tree) = c.jax_read_rpw(idx)
-    want_new = np.asarray(c.jwrite(c.ram_ct, want_tree, w_ct, c.addrs[idx],
-                                   *c.jkey_args))
+    new_word = WRITE_WORD[:c.jpar.word_size]
+    w_ct, want_new = c.jax_write()
 
     taddr, tprep = c.port_address(idx)
     tw = from_reference(word=w_ct, device="cpu").word
@@ -276,3 +307,30 @@ def test_rmw_batch_matches_jax_on_the_jax_clients_ciphertexts(client):
         plain[idx * W: (idx + 1) * W] = words[k]
     for idx in _addresses(c.jpar):
         c.check_word(c.server.read(new_state, c.port_address(idx)[1]), idx, plain)
+
+
+def test_sharded_read_and_rmw_match_jax_on_the_jax_clients_ciphertexts(client):
+    """The port's row-sharded paths at rows 2 on the JAX client's
+    ciphertexts: sharded_read_fn with the exchange tail == read_impl on
+    every shard; sharded_rmw_fn's new RAM, un-permuted, == write_impl after
+    rpw_impl.  The JAX package holds its own sharded read and RMW equal to
+    those two (tests/test_sharding.py:53-62, 106-131), so this holds the
+    port's sharded paths to the JAX package's too."""
+    c = client
+    mesh = tmesh.make_mesh(2, rows=2, devices=["cpu"] * 2)
+    shards = tmesh.shard_data_rows(mesh, c.carried.data)
+    read = tmesh.sharded_read_fn(c.tpar, mesh, "exchange")
+    for idx in _addresses(c.jpar):
+        want = np.asarray(c.jax_read_rpw(idx)[0])
+        outs = read(shards, c.port_address(idx)[1].coordinates,
+                    c.server.keys.atk_glwe)
+        assert all(np.array_equal(o.numpy(), want) for o in outs), f"idx={idx}"
+
+    idx = _addresses(c.jpar)[2]
+    w_ct, want_new = c.jax_write()
+    taddr, tprep = c.port_address(idx)
+    tw = from_reference(word=w_ct, device="cpu").word
+    outs, new = tmesh.sharded_rmw_fn(c.tpar, mesh)(
+        shards, tprep.coordinates, taddr.coordinates, tw, c.server.keys)
+    assert np.array_equal(tmesh.unshard_rows(new).numpy(), want_new)
+    c.check_word(outs[0], idx, c.data)
