@@ -17,7 +17,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  cycle's shapes at PARAMS_2_18_READOPT, the collectives at
                  the row-sharded paths' shapes at PARAMS_2_24_READOPT
                  (torch.equal: integer arithmetic, tolerance 0), with times
-                 (the collectives also beside torch.stack / clone)
+                 (the collectives also beside torch.stack / clone); kernels
+                 1, 2, 5 and 12 in both transform bodies, the two-pass
+                 variant also bit-equal to the radix-2 one; kernel 12 (on
+                 no path) also folded and held against kernel 2
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -41,6 +44,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  RAM bit-equal
   tree_kernels_cycle  the single cycle with tree_kernels=True beside the
                  default's, bit-equal
+  composed_read  FheRam(composed=True), the composed configuration (the
+                 two-pass transform body; each pack merge, trace step and
+                 split level one fold launch): the read phase's addresses,
+                 each bit-equal to the fused server's read and decoded;
+                 every launch of the window a two-pass variant (none of
+                 kernels 3, 4, 6-11); composed_read_ms beside read_ms
+  composed_rmw   4 chained composed cycles at fresh addresses: old words out,
+                 new words back, each cycle bit-equal to the fused server's
+                 (read-out and all of the new RAM); rpw_ms, write_ms
+  composed_batch read_batch of 16 (with and without the cache) and rmw_batch
+                 of 4, bit-equal to the fused server's, decoded
+  composed_vs_plain  a composed read and cycle through the plain versions
   vm_cycle       the port's own client at PARAMS_2_18_READOPT (keygen, RAM,
                  operands from --seed), then 6 chained vm_cycle calls, each
                  selecting another ALU op by its encrypted id and storing
@@ -73,7 +88,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  every new data shard bit-equal
   sharded_vs_plain  one sharded read again through the plain versions on the
                  card, collectives included: every shard's output bit-equal
-  kernels        one line for all kernels: launches over the nine paths,
+  kernels        one line for all kernels: launches over the twelve paths,
                  error, time, the plain version's time, the card's bound, and
                  for the collectives the library call's time
 
@@ -329,7 +344,9 @@ def main():
     from fhe_ram_tpu_torch.params import PARAMS_2_24_READOPT as BPAR
     from fhe_ram_tpu_torch.parallel import collective as coll_mod
     from fhe_ram_tpu_torch.parallel import mesh as mesh_mod
+    from fhe_ram_tpu_torch.ops import limb as limb_ops
     from fhe_ram_tpu_torch.ops import ntt_cuda
+    from fhe_ram_tpu_torch.ops.crt import crt_fold
     from fhe_ram_tpu_torch.ops.ntt import get_ntt_context
     from fhe_ram_tpu_torch.core import glwe, keys as keys_mod, rng
     from fhe_ram_tpu_torch.ram import address as address_mod
@@ -358,6 +375,7 @@ def main():
     ntt_cuda.ensure_built(verbose=args.verbose_build)
     emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 2),
           "sources": [f"fhe_ram_tpu_torch/csrc/{s}.cu" for s in ntt_cuda.SOURCES],
+          "built_for_both_bodies": list(ntt_cuda.BODY_SOURCES),
           "target": "sm_90a"})
 
     # ---- each kernel against its plain version, at the read's shapes -------
@@ -370,6 +388,7 @@ def main():
     T_ks, M_ks = rank * Dk, C * Lkk    # 2, 6
     S = PAR.log_n
     ctx = get_ntt_context(n, PAR.primes)
+    tctx = get_ntt_context(n, PAR.primes, "two_pass")   # the composed routes' body
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
     flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
 
@@ -385,14 +404,15 @@ def main():
     poly_b = 4 * n  # bytes of one int32 polynomial
 
     def check(name, shape_note, kernel_fn, reps=7, plain_reps=3,
-              per_level_fn=None, work=None, library_fn=None):
+              per_level_fn=None, work=None, library_fn=None, same_as=None):
         """Run kernel and plain version on the same tensors; compare; time.
         kernel_fn returns one tensor or a tuple of them.  per_level_fn: the
         same function as a sequence of per-level kernel launches (a tree
         kernel's yardstick); held bit-equal and timed as well.  work: (bytes
         moved, operations) of this shape, for its bound beside its time.
         library_fn: one PyTorch call that computes the same function, timed
-        beside it (never used by the port)."""
+        beside it (never used by the port).  same_as: the same call in the
+        other transform body, held bit-equal (spectra included)."""
         def outputs(fn):
             out = fn()
             torch.cuda.synchronize()
@@ -421,6 +441,10 @@ def main():
             ok = ok and all(torch.equal(a, b) for a, b in zip(got, levels))
             del levels
             rec.update(ok=ok, per_level_ms=time_ms(per_level_fn, reps, 2, flush))
+        if same_as is not None:
+            rec["equal_to_radix2"] = all(
+                torch.equal(a, b) for a, b in zip(got, outputs(same_as)))
+            ok = rec["ok"] = ok and rec["equal_to_radix2"]
         checks.setdefault(name, []).append(rec)
         if not ok:
             emit({"phase": "kernel_check", "name": name, **rec})
@@ -428,29 +452,38 @@ def main():
                  f"(max abs err {err})")
         return rec
 
+    def check_bodies(name, shape_note, make, **kw):
+        """check() of a kernel built with both transform bodies: make(ctx_)
+        -> the call under that context.  The two-pass variant (counted and
+        listed as name + "_two_pass") is held against its plain version and
+        bit-equal to the radix-2 variant."""
+        check(name, shape_note, make(ctx), **kw)
+        return check(f"{name}_two_pass", shape_note, make(tctx), same_as=make(ctx),
+                     **kw)
+
     # kernel 1: both directions at B = 36 (one address coordinate's GGSW)
     x36 = limbs((36, n), bits=21)
-    check("ntt_fwd", "x[36,4096]", lambda: ntt_cuda.ntt_fwd_cuda(ctx, x36))
+    check_bodies("ntt_fwd", "x[36,4096]", lambda c: lambda: ntt_cuda.ntt_fwd_cuda(c, x36))
     s36 = ntt_cuda.ntt_fwd_cuda(ctx, x36)
-    check("ntt_inv", "x[3,36,4096]", lambda: ntt_cuda.ntt_inv_cuda(ctx, s36))
+    check_bodies("ntt_inv", "x[3,36,4096]", lambda c: lambda: ntt_cuda.ntt_inv_cuda(c, s36))
 
     # kernel 2: level 0 (B = W*R = 256) without and with base, level 1 (B = 4)
     keys_ep = spectra((1, T_ep, M_ep, n)).reshape(P, 1, T_ep, M_ep, n)
     x0 = limbs((W * R, T_ep, n))
     base0 = limbs((W * R, C, L, n), bits=17)
-    check("fused_external_fold", f"x[{W*R},{T_ep},4096] keys[3,1,{T_ep},{M_ep},4096]",
-          lambda: ntt_cuda.fused_external_fold(ctx, x0, keys_ep, L, C))
-    check("fused_external_fold", f"x[{W*R},{T_ep},4096] with base, sign=-1",
-          lambda: ntt_cuda.fused_external_fold(ctx, x0, keys_ep, L, C,
+    check_bodies("fused_external_fold", f"x[{W*R},{T_ep},4096] keys[3,1,{T_ep},{M_ep},4096]",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, x0, keys_ep, L, C))
+    check_bodies("fused_external_fold", f"x[{W*R},{T_ep},4096] with base, sign=-1",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, x0, keys_ep, L, C,
                                                base=base0, sign=-1))
     x1 = limbs((W, T_ep, n))
-    check("fused_external_fold", f"x[{W},{T_ep},4096] (level 1)",
-          lambda: ntt_cuda.fused_external_fold(ctx, x1, keys_ep, L, C))
+    check_bodies("fused_external_fold", f"x[{W},{T_ep},4096] (level 1)",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, x1, keys_ep, L, C))
     # two chained digits (T == C*L), a shape the narrow-digit presets use
     keys_ch = spectra((2, C * L, C * Lge, n)).reshape(P, 2, C * L, C * Lge, n)
     xch = limbs((W, C * L, n))
-    check("fused_external_fold", f"x[{W},{C*L},4096] two chained digits",
-          lambda: ntt_cuda.fused_external_fold(ctx, xch, keys_ch, L, C))
+    check_bodies("fused_external_fold", f"x[{W},{C*L},4096] two chained digits",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, xch, keys_ch, L, C))
 
     # kernel 3: the 12-step trace of W = 4 rows
     gals = PAR.trace_gal_els
@@ -478,46 +511,66 @@ def main():
     # same with two chained digits, the full-gadget shapes of rpw / write,
     # and the two folds of the GGSW inversion (5 key limbs folded to 3)
     s0 = ntt_cuda.ntt_fwd_cuda(ctx, x0)            # [3, 256, 4, N]
-    check("fused_external_fold", f"x_is_ntt x[3,{W*R},{T_ep},4096]",
-          lambda: ntt_cuda.fused_external_fold(ctx, s0, keys_ep, L, C,
+    check_bodies("fused_external_fold", f"x_is_ntt x[3,{W*R},{T_ep},4096]",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, s0, keys_ep, L, C,
                                                x_is_ntt=True))
     sch = ntt_cuda.ntt_fwd_cuda(ctx, xch)
-    check("fused_external_fold", f"x_is_ntt x[3,{W},{C*L},4096] two chained digits",
-          lambda: ntt_cuda.fused_external_fold(ctx, sch, keys_ch, L, C,
+    check_bodies("fused_external_fold", f"x_is_ntt x[3,{W},{C*L},4096] two chained digits",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, sch, keys_ch, L, C,
                                                x_is_ntt=True))
     keys_ef = spectra((1, T_ef, M_ef, n)).reshape(P, 1, T_ef, M_ef, n)
     for B_ in (W * R, W):
         xf = limbs((B_, T_ef, n))
-        check("fused_external_fold", f"x[{B_},{T_ef},4096] keys[3,1,{T_ef},{M_ef},4096] (full gadget)",
-              lambda: ntt_cuda.fused_external_fold(ctx, xf, keys_ef, L, C))
+        check_bodies("fused_external_fold", f"x[{B_},{T_ef},4096] keys[3,1,{T_ef},{M_ef},4096] (full gadget)",
+              lambda c: lambda: ntt_cuda.fused_external_fold(c, xf, keys_ef, L, C))
     D_ = PAR.dnum_ggsw
     keys_ak = spectra((1, rank * D_, C * Lgk, n)).reshape(P, 1, rank * D_, C * Lgk, n)
     xak, bak = limbs((D_, rank * D_, n)), limbs((D_, C, Lg, n), bits=17)
-    check("fused_external_fold", f"x[{D_},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (inversion keyswitch)",
-          lambda: ntt_cuda.fused_external_fold(ctx, xak, keys_ak, Lg, C,
+    check_bodies("fused_external_fold", f"x[{D_},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (inversion keyswitch)",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, xak, keys_ak, Lg, C,
                                                base=bak, sign=-1))
     keys_ts = spectra((1, C * D_, C * Lgk, n)).reshape(P, 1, C * D_, C * Lgk, n)
     xts = limbs((D_, C * D_, n))
-    check("fused_external_fold", f"x[{D_},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (tensor key)",
-          lambda: ntt_cuda.fused_external_fold(ctx, xts, keys_ts, Lg, C))
+    check_bodies("fused_external_fold", f"x[{D_},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (tensor key)",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, xts, keys_ts, Lg, C))
 
     # kernel 5: level 0 of a batched read (shared spectra, per-address keys)
     # and level 1 (per-address rows), with base and sign once
     keys_b = spectra((NA, 1, T_ep, M_ep, n)).permute(1, 0, 2, 3, 4, 5).contiguous()
-    check("fused_external_fold_batched",
+    check_bodies("fused_external_fold_batched",
           f"x_is_ntt x[3,{W*R},{T_ep},4096] keys[{NA},3,1,{T_ep},{M_ep},4096] (level 0)",
-          lambda: ntt_cuda.fused_external_fold_batched(ctx, s0, keys_b, L, C,
+          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, s0, keys_b, L, C,
                                                        x_is_ntt=True),
           plain_reps=2)
     xb1 = limbs((NA, W, T_ep, n))
-    check("fused_external_fold_batched",
+    check_bodies("fused_external_fold_batched",
           f"x[{NA},{W},{T_ep},4096] keys[{NA},3,1,{T_ep},{M_ep},4096] (level 1)",
-          lambda: ntt_cuda.fused_external_fold_batched(ctx, xb1, keys_b, L, C))
+          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, xb1, keys_b, L, C))
     bb1 = limbs((NA, W, C, L, n), bits=17)
-    check("fused_external_fold_batched",
+    check_bodies("fused_external_fold_batched",
           f"x[{NA},{W},{T_ep},4096] with base, sign=-1",
-          lambda: ntt_cuda.fused_external_fold_batched(ctx, xb1, keys_b, L, C,
+          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, xb1, keys_b, L, C,
                                                        base=bb1, sign=-1))
+
+    # kernel 12 in both bodies (on no path: held here alone): a small shape
+    # and the read's level-0 shape, and the relation the JAX package's own
+    # test pins: normalize(crt_fold(kernel 12)) == kernel 2 without a base
+    for B_, T_, M_ in ((2, 3, 2), (W * R, T_ep, M_ep)):
+        x12 = limbs((B_, T_, n))
+        k12 = spectra((T_, M_, n))
+        check_bodies("fused_external", f"x[{B_},{T_},4096] keys[3,{T_},{M_},4096]",
+                     lambda c: lambda: ntt_cuda.fused_external(c, x12, k12),
+                     plain_reps=2 if B_ > 2 else 3,
+                     work=(poly_b * (B_ * T_ + P * T_ * M_ + P * B_ * M_),
+                           B_ * P * (T_ * ntt_ops(n) + M_ * (2 * T_ * n + ntt_ops(n)))))
+    for c_ in (ctx, tctx):
+        folded = limb_ops.normalize(crt_fold(
+            PAR.primes, ntt_cuda.fused_external(c_, x12, k12).reshape(P, W * R, C, Lge, n),
+            17, L))
+        if not torch.equal(folded, ntt_cuda.fused_external_fold(c_, x12, k12[:, None], L, C)):
+            fail(f"fused_external ({c_.body}): crt_fold + normalize differs from "
+                 "fused_external_fold")
+    del x12, k12, folded
 
     # kernels 3 and 4 with the untruncated keyswitch key (rpw / write)
     keys_trf = spectra((S, T_kf, M_kf, n)).permute(1, 0, 2, 3, 4).contiguous()
@@ -539,24 +592,24 @@ def main():
         1, 0, 2, 3, 4, 5).contiguous()
     sf0 = ntt_cuda.ntt_fwd_cuda(ctx, limbs((W * R, T_ef, n)))
     key_polys = NB_RMW * P * T_ef * M_ef
-    check("fused_external_fold_batched",
+    check_bodies("fused_external_fold_batched",
           f"x_is_ntt x[3,{W*R},{T_ef},4096] keys[{NB_RMW},3,1,{T_ef},{M_ef},4096] (rmw_batch level 0)",
-          lambda: ntt_cuda.fused_external_fold_batched(ctx, sf0, keys_bf, L, C,
+          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, sf0, keys_bf, L, C,
                                                        x_is_ntt=True),
           plain_reps=1,
           work=(poly_b * (P * W * R * T_ef + key_polys + NB_RMW * W * R * C * L),
                 fold_ops(NB_RMW * W * R, T_ef, M_ef, n, spectral=True)))
     del sf0
     xbf1 = limbs((NB_RMW, W, T_ef, n))
-    check("fused_external_fold_batched",
+    check_bodies("fused_external_fold_batched",
           f"x[{NB_RMW},{W},{T_ef},4096] keys[{NB_RMW},3,1,{T_ef},{M_ef},4096] (rmw_batch level 1, d_lo)",
-          lambda: ntt_cuda.fused_external_fold_batched(ctx, xbf1, keys_bf, L, C),
+          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, xbf1, keys_bf, L, C),
           work=(poly_b * (NB_RMW * W * (T_ef + C * L) + key_polys),
                 fold_ops(NB_RMW * W, T_ef, M_ef, n)))
     xbu = limbs((NB_RMW, W * R, T_ef, n))
-    check("fused_external_fold_batched",
+    check_bodies("fused_external_fold_batched",
           f"x[{NB_RMW},{W*R},{T_ef},4096] keys[{NB_RMW},3,1,{T_ef},{M_ef},4096] (rmw_batch upd)",
-          lambda: ntt_cuda.fused_external_fold_batched(ctx, xbu, keys_bf, L, C),
+          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, xbu, keys_bf, L, C),
           plain_reps=1,
           work=(poly_b * (NB_RMW * W * R * (T_ef + C * L) + key_polys),
                 fold_ops(NB_RMW * W * R, T_ef, M_ef, n)))
@@ -564,14 +617,14 @@ def main():
     # kernel 2: the two folds of the GGSW inversion over all NB_RMW addresses
     nbi = NB_RMW * D_
     xak, bak = limbs((nbi, rank * D_, n)), limbs((nbi, C, Lg, n), bits=17)
-    check("fused_external_fold", f"x[{nbi},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (batched inversion keyswitch)",
-          lambda: ntt_cuda.fused_external_fold(ctx, xak, keys_ak, Lg, C,
+    check_bodies("fused_external_fold", f"x[{nbi},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (batched inversion keyswitch)",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, xak, keys_ak, Lg, C,
                                                base=bak, sign=-1),
           work=(poly_b * (nbi * (rank * D_ + 2 * C * Lg) + P * rank * D_ * C * Lgk),
                 fold_ops(nbi, rank * D_, C * Lgk, n)))
     xts = limbs((nbi, C * D_, n))
-    check("fused_external_fold", f"x[{nbi},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (batched tensor key)",
-          lambda: ntt_cuda.fused_external_fold(ctx, xts, keys_ts, Lg, C),
+    check_bodies("fused_external_fold", f"x[{nbi},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (batched tensor key)",
+          lambda c: lambda: ntt_cuda.fused_external_fold(c, xts, keys_ts, Lg, C),
           work=(poly_b * (nbi * (C * D_ + C * Lg) + P * C * D_ * C * Lgk),
                 fold_ops(nbi, C * D_, C * Lgk, n)))
     # kernels 3 and 4 with the batch folded into the row axis: the trace of
@@ -704,13 +757,14 @@ def main():
     def prepared(idx):
         return address_mod.prepare(ctx, address_mod.encrypt(PAR, ctx, s_ntt, idx, src))
 
-    def decode(out, idx, what, plain=data):
+    def decode(out, idx, what, plain=data, dctx=ctx):
         """Every byte of the word read at idx equals `plain`'s, under the
-        noise bound; returns the worst log2 noise."""
+        noise bound; returns the worst log2 noise.  dctx: the context of
+        the decryption's transforms."""
         if tuple(out.shape) != (W, C, L, n) or out.dtype != torch.int32:
             fail(f"{what} at {idx}: output {tuple(out.shape)} {out.dtype}")
         worst = -1e9
-        ph = glwe.phase(PAR, ctx, s_ntt, out)
+        ph = glwe.phase(PAR, dctx, s_ntt, out)
         for i in range(W):
             want = glwe.cast_u8_signed(int(plain[idx * W + i]), PAR.k_pt)
             val, noise = glwe.decode_coeff0(PAR, ph[i], want)
@@ -1062,6 +1116,178 @@ def main():
           "ms_all": cyc,
           "launches": {"read_prepare_write": l_trpw, "write": l_twr}})
     del out_l, pend_l, new_l, out_t, pend_t, new_t
+
+    # ---- the composed configuration: FheRam(composed=True) --------------------
+    # The two-pass transform body and the composed routes: each pack merge,
+    # trace step and split level is torch glue around one launch of the fold
+    # kernel.  The client's work inside the counted windows (preparing
+    # addresses, decrypting) runs under the same context, so every launch
+    # there must be of a two-pass variant: kernels 3, 4 and 6-11 and the
+    # radix-2 variants are not launched at all.  Launches a call, counted
+    # from the code: a read or an rpw 20 folds (2 products, 6 merges, 12
+    # trace steps); a write 24 (12 trace steps, 2 x 2 inversion folds, 6
+    # split levels, the delta's and the update's products) and 2 transforms;
+    # a read_batch 2 batched folds, 18 folds and its one transform (none
+    # with the cache); an rmw_batch 4 batched folds, 28 folds, 3 transforms.
+    cserver = ram_mod.FheRam(PAR, ekp, device=dev, composed=True)
+    cctx = cserver.ctx
+
+    def only_two_pass(what, counts):
+        off = {k: v for k, v in counts.items() if v and not k.endswith("_two_pass")}
+        if off:
+            fail(f"{what}: launches off the composed routes: {off}")
+
+    # composed_read: the read phase's addresses on the RAM as it is now, each
+    # bit-equal to the fused server's read (taken first, outside the window)
+    c_coeff = {idx: address_mod.encrypt(PAR, ctx, s_ntt, idx, src) for idx in addrs}
+    fused_out = {idx: server.read(state, address_mod.prepare(ctx, c_coeff[idx]))
+                 for idx in addrs}
+    ntt_cuda.reset_launches()
+    c_read_ms, worst_c, c_per_read = [], -1e9, None
+    for idx in addrs:
+        ap_ = address_mod.prepare(cctx, c_coeff[idx])
+        out, ms, c_per_read = launches_of(lambda: cserver.read(state, ap_))
+        expect_launches(f"composed read at {idx}", c_per_read,
+                        fused_external_fold_two_pass=20)
+        c_read_ms.append(ms)
+        if not torch.equal(out, fused_out[idx]):
+            fail(f"composed read at {idx}: differs from the fused server's read")
+        worst_c = max(worst_c, decode(out, idx, "composed read", dctx=cctx))
+    c_read_launches = dict(ntt_cuda.LAUNCHES)
+    only_two_pass("composed_read", c_read_launches)
+    del fused_out
+    emit({"phase": "composed_read", "ok": True, "reads": len(addrs),
+          "addresses": addrs, "equal_to_fused_server": True,
+          "composed_read_ms_median": statistics.median(c_read_ms),
+          "composed_read_ms": c_read_ms,
+          "read_ms_median": statistics.median(read_ms),
+          "worst_noise_log2": worst_c, "noise_bound_log2": -(PAR.k_pt + 1),
+          "launches_per_read": c_per_read})
+
+    # composed_rmw: 4 chained cycles at fresh addresses (inputs encrypted
+    # before the window), then every cycle again through the fused server
+    used |= set(more)
+    fresh = [int(a) for a in np.random.default_rng(args.seed + 300).permutation(
+        PAR.max_addr) if int(a) not in used][:CYCLES + 4]
+    c_cycle_idx, c_rb_idx = fresh[:CYCLES], fresh[CYCLES:]
+    c_in = []
+    for k, idx in enumerate(c_cycle_idx):
+        new_word = np.random.default_rng(args.seed + 400 + k).integers(
+            0, 256, size=W).astype(np.uint8)
+        c_in.append((idx, address_mod.encrypt(PAR, ctx, s_ntt, idx, src), new_word,
+                     ram_mod.encrypt_write_word(PAR, ctx, s_ntt, new_word, src)))
+    ntt_cuda.reset_launches()
+    c_rpw_ms, c_write_ms, worst_cr, c_cycles, c_cycle_l = [], [], -1e9, [], None
+    for idx, addr, new_word, w_ct in c_in:
+        ap_ = address_mod.prepare(cctx, addr)
+        (out, pending), t_rpw, l_rpw = launches_of(
+            lambda: cserver.read_prepare_write(state, ap_))
+        new_state, t_wr, l_wr = launches_of(lambda: cserver.write(pending, w_ct, addr))
+        expect_launches(f"composed read_prepare_write at {idx}", l_rpw,
+                        fused_external_fold_two_pass=20)
+        expect_launches(f"composed write at {idx}", l_wr,
+                        fused_external_fold_two_pass=24, ntt_fwd_two_pass=2)
+        c_cycle_l = {"read_prepare_write": l_rpw, "write": l_wr}
+        c_rpw_ms.append(t_rpw)
+        c_write_ms.append(t_wr)
+        worst_cr = max(worst_cr, decode(out, idx, "composed read_prepare_write",
+                                        dctx=cctx))
+        c_cycles.append((state, ap_, addr, w_ct, out, new_state))
+        state = new_state
+        data[idx * W: (idx + 1) * W] = new_word
+    c_rmw_launches = dict(ntt_cuda.LAUNCHES)
+    only_two_pass("composed_rmw", c_rmw_launches)
+    for idx, addr, _, _ in c_in:   # read back after all the writes
+        worst_cr = max(worst_cr, decode(
+            cserver.read(state, address_mod.prepare(cctx, addr)), idx,
+            "composed read-back", dctx=cctx))
+    for st0, ap_, addr, w_ct, out, st1 in c_cycles:
+        f_out, f_pending = server.read_prepare_write(st0, ap_)
+        if not (torch.equal(f_out, out)
+                and torch.equal(server.write(f_pending, w_ct, addr).data, st1.data)):
+            fail("composed cycle: the read-out or the new RAM differs from the "
+                 "fused server's")
+    emit({"phase": "composed_rmw", "ok": True, "cycles": CYCLES,
+          "addresses": c_cycle_idx,
+          "equal_to_fused_server": "read-outs and all of each new RAM",
+          "rpw_ms": statistics.median(c_rpw_ms), "write_ms": statistics.median(c_write_ms),
+          "rpw_plus_write_ms": statistics.median(
+              [a + b for a, b in zip(c_rpw_ms, c_write_ms)]),
+          "rpw_ms_all": c_rpw_ms, "write_ms_all": c_write_ms,
+          "fused_rpw_ms": statistics.median(rpw_ms),
+          "fused_write_ms": statistics.median(write_ms),
+          "worst_noise_log2": worst_cr, "noise_bound_log2": -(PAR.k_pt + 1),
+          "launches_per_cycle": c_cycle_l})
+
+    # composed_batch: read_batch of 16 (without and with the spectral cache)
+    # and rmw_batch of 4 fresh addresses, against the fused server's
+    rb_preps, rb_prep_b, rb_coeff_b = address_batch(c_rb_idx)
+    rb_words, rb_w = word_batch(args.seed + 500, len(c_rb_idx))
+    f_batch = server.read_batch(state, coords_b)
+    f_outs, f_new = server.rmw_batch(state, rb_prep_b, rb_coeff_b, rb_w)
+    ntt_cuda.reset_launches()
+    c_got, cb_ms, l_cb = launches_of(lambda: cserver.read_batch(state, coords_b))
+    c_cache, _, l_cc = launches_of(lambda: cserver.spectral_cache(state))
+    c_got_c, cbc_ms, l_cbc = launches_of(
+        lambda: cserver.read_batch(state, coords_b, cache=c_cache))
+    (c_outs, c_new), crb_ms, l_crb = launches_of(
+        lambda: cserver.rmw_batch(state, rb_prep_b, rb_coeff_b, rb_w))
+    c_batch_launches = dict(ntt_cuda.LAUNCHES)
+    only_two_pass("composed_batch", c_batch_launches)
+    expect_launches("composed read_batch", l_cb, fused_external_fold_batched_two_pass=2,
+                    ntt_fwd_two_pass=1, fused_external_fold_two_pass=18)
+    expect_launches("composed spectral_cache", l_cc, ntt_fwd_two_pass=1)
+    expect_launches("composed read_batch with the cache", l_cbc,
+                    fused_external_fold_batched_two_pass=2,
+                    fused_external_fold_two_pass=18)
+    expect_launches("composed rmw_batch", l_crb, fused_external_fold_batched_two_pass=4,
+                    fused_external_fold_two_pass=28, ntt_fwd_two_pass=3)
+    if not (torch.equal(c_got, f_batch) and torch.equal(c_got_c, f_batch)):
+        fail("composed read_batch: differs from the fused server's")
+    if not (torch.equal(c_outs, f_outs) and torch.equal(c_new.data, f_new.data)):
+        fail("composed rmw_batch: outs or the new RAM differ from the fused server's")
+    del f_batch, f_outs, f_new, c_cache
+    worst_cb = -1e9
+    for k, idx in enumerate(batch_idx):
+        worst_cb = max(worst_cb, decode(c_got[k], idx, "composed read_batch", dctx=cctx))
+    for k, idx in enumerate(c_rb_idx):
+        worst_cb = max(worst_cb, decode(c_outs[k], idx, "composed rmw_batch read-out",
+                                        dctx=cctx))
+        data[idx * W: (idx + 1) * W] = rb_words[k]
+    state = c_new
+    back = cserver.read_batch(state, rb_prep_b)
+    for k, idx in enumerate(c_rb_idx):
+        worst_cb = max(worst_cb, decode(back[k], idx, "composed rmw_batch read-back",
+                                        dctx=cctx))
+    del c_got, c_got_c, c_outs, back
+    emit({"phase": "composed_batch", "ok": True, "batch": BATCH,
+          "rmw_batch": len(c_rb_idx), "rmw_addresses": c_rb_idx,
+          "equal_to_fused_server": "read_batch (cached and not), rmw_batch outs "
+                                   "and all of the new RAM",
+          "batch_ms": cb_ms, "cached_batch_ms": cbc_ms, "rmw_batch_ms": crb_ms,
+          "fused_batch_ms": statistics.median(batch_all),
+          "worst_noise_log2": worst_cb, "noise_bound_log2": -(PAR.k_pt + 1),
+          "launches": {"read_batch": l_cb, "spectral_cache": l_cc,
+                       "read_batch_cached": l_cbc, "rmw_batch": l_crb}})
+
+    # composed_vs_plain: one read and one cycle through plain_versions()
+    c_ap0 = address_mod.prepare(cctx, c_coeff[addrs[-1]])
+    k_out = cserver.read(state, c_ap0)
+    st0, cap_, addr, w_ct, out, st1 = c_cycles[-1]
+    with ntt_cuda.plain_versions():
+        p_out, p_read_ms = timed(lambda: cserver.read(state, c_ap0))
+        (p_rpw, p_pend), p_rpw_ms = timed(lambda: cserver.read_prepare_write(st0, cap_))
+        p_new, p_write_ms = timed(lambda: cserver.write(p_pend, w_ct, addr))
+    if not torch.equal(p_out, k_out):
+        fail("composed read: kernels and plain versions disagree")
+    if not (torch.equal(p_rpw, out) and torch.equal(p_new.data, st1.data)):
+        fail("composed cycle: kernels and plain versions disagree")
+    emit({"phase": "composed_vs_plain", "ok": True, "address": addrs[-1],
+          "cycle_address": c_cycle_idx[-1],
+          "compared": "a read; a cycle's read-out and all of its new RAM",
+          "plain_read_ms": p_read_ms, "plain_rpw_ms": p_rpw_ms,
+          "plain_write_ms": p_write_ms})
+    del k_out, p_out, p_rpw, p_new, c_coeff
 
     # ---- the VM instruction cycle at PARAMS_2_18_READOPT -----------------------
     from fhe_ram_tpu_torch.vm import arithmetic, conversion, fheuint, store
@@ -1644,6 +1870,15 @@ def main():
         traced("write, tree kernels",
                lambda: tree_server.write(pend[0], w_ct, addr),
                statistics.median(cyc["tree_write"]))
+        traced("composed read", lambda: cserver.read(state, c_ap0),
+               statistics.median(c_read_ms))
+        st0, cap_, addr, w_ct, _, _ = c_cycles[-1]
+        pend = []
+        traced("composed read_prepare_write",
+               lambda: pend.append(cserver.read_prepare_write(st0, cap_)[1]),
+               statistics.median(c_rpw_ms))
+        traced("composed write", lambda: cserver.write(pend[0], w_ct, addr),
+               statistics.median(c_write_ms))
         traced("vm_cycle", lambda: vm_cycle(VPAR, vctx, vkeys, data=st_l, **enc_l),
                statistics.median(vm_ms))
         bap = baddrs[big_reads[0]][1]
@@ -1659,16 +1894,20 @@ def main():
                statistics.median(srmw_ms))
 
     # ---- the kernels' line --------------------------------------------------
-    # launches over the nine paths, each counted from 0 just before it was
-    # driven to just after (comparisons and read-backs are outside)
+    # launches over the twelve paths, each counted from 0 just before it was
+    # driven to just after (comparisons and read-backs are outside).  Kernel
+    # 12 lies on no path of either package: its checks above are all it gets.
     by_path = {"read": path_launches, "rmw": rmw_launches,
                "read_batch": batch_launches, "rmw_batch": rmw_batch_launches,
+               "composed_read": c_read_launches, "composed_rmw": c_rmw_launches,
+               "composed_batch": c_batch_launches,
                "vm_cycle": vm_launches, "read_2_24": read24_launches,
                "sharded_read": shread_launches, "sharded_batch": shbatch_launches,
                "sharded_rmw": srmw_launches}
+    on_no_path = ("fused_external", "fused_external_two_pass")
     total_launches = {k: sum(p_[k] for p_ in by_path.values()) for k in path_launches}
     for k, v in total_launches.items():
-        if v == 0:
+        if v == 0 and k not in on_no_path:
             fail(f"kernel {k} was launched on none of the paths")
 
     def entry(name, source, replaces, shape_idx, bytes_moved=None, ops=None):
@@ -1698,25 +1937,35 @@ def main():
     B0 = W * R
     nb0 = W * R // 2
     nbr = NB_RMW * W
-    kernels = [
-        entry("ntt_fwd", "ntt.cu", 454, 0,
-              36 * poly_b * (1 + P), 36 * P * ntt_ops(n)),
-        entry("ntt_inv", "ntt.cu", 499, 0,
-              36 * poly_b * 2 * P, 36 * P * ntt_ops(n)),
-        entry("fused_external_fold", "fold.cu", 1158, 0,
-              poly_b * (B0 * T_ep + P * T_ep * M_ep + B0 * C * L),
-              fold_ops(B0, T_ep, M_ep, n)),
+    kernels = []
+    # kernels 1, 2 and 5 in both bodies: the two-pass variants replace the
+    # same pallas_calls' FHERAM_MXU=0 bodies (_fwd_kernel, _inv_kernel, the
+    # non-MXU branches of _fold_kernel_factory)
+    for sfx, lines in (("", (454, 499, 1158, 1263)), ("_two_pass", (416, 429, 1044, 1044))):
+        kernels += [
+            entry(f"ntt_fwd{sfx}", "ntt.cu", lines[0], 0,
+                  36 * poly_b * (1 + P), 36 * P * ntt_ops(n)),
+            entry(f"ntt_inv{sfx}", "ntt.cu", lines[1], 0,
+                  36 * poly_b * 2 * P, 36 * P * ntt_ops(n)),
+            entry(f"fused_external_fold{sfx}", "fold.cu", lines[2], 0,
+                  poly_b * (B0 * T_ep + P * T_ep * M_ep + B0 * C * L),
+                  fold_ops(B0, T_ep, M_ep, n)),
+            # level 0 of a batched read of NA addresses: the shared spectra
+            # and NA keys in, NA x (W*R) rows out; no forward transforms
+            entry(f"fused_external_fold_batched{sfx}", "fold.cu", lines[3], 0,
+                  poly_b * (P * B0 * T_ep + NA * P * T_ep * M_ep + NA * B0 * C * L),
+                  fold_ops(NA * B0, T_ep, M_ep, n, spectral=True))]
+    # kernel 12 at the read's level-0 shape, both bodies (the body of the
+    # two-pass variant: the non-MXU `kernel` of _fused_kernel_factory)
+    kernels += [entry("fused_external", "external.cu", 601, 1),
+                entry("fused_external_two_pass", "external.cu", 572, 1)]
+    kernels += [
         entry("fused_trace", "trace.cu", 1463, 0,
               poly_b * (2 * W * C * L + S * P * T_ks * M_ks),
               S * fold_ops(W, T_ks, M_ks, n)),
         entry("fused_pack_merge", "pack_merge.cu", 1582, 0,
               poly_b * (3 * nb0 * C * L + P * T_ks * M_ks),
               fold_ops(nb0, T_ks, M_ks, n)),
-        # level 0 of a batched read of NA addresses: the shared spectra and
-        # NA keys in, NA x (W*R) rows out; no forward transforms
-        entry("fused_external_fold_batched", "fold.cu", 1263, 0,
-              poly_b * (P * B0 * T_ep + NA * P * T_ep * M_ep + NA * B0 * C * L),
-              fold_ops(NA * B0, T_ep, M_ep, n, spectral=True)),
         # the last split level: nb0 rows in, two children out; the second
         # child is ~4 operations a coefficient on top of one trace step
         entry("fused_split", "split.cu", 1699, 0,

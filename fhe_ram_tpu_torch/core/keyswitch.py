@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..params import Params
-from ..ops.ntt import NTTContext, ntt_fwd
+from ..ops.ntt import NTTContext, fused_path_active, ntt_fwd
 from ..ops.modular import I32
 from ..ops import limb as limb_ops
 from ..ops import ntt_cuda
@@ -140,7 +140,9 @@ def trace_steps(params: Params, ctx: NTTContext, ct, auto_keys_ntt: dict,
     """The division-free trace iteration ct <- normalize(ct +
     KS(sigma_g(ct))) for each g in gals, WITHOUT the up-front pre-scale
     (callers pre-scale once; see trace()).  The whole chain is one launch
-    of ops.ntt_cuda.fused_trace.
+    of ops.ntt_cuda.fused_trace; on the composed routes (a two-pass
+    context: ops.ntt.fused_path_active) one fold launch a step, sigma_g
+    and the base in torch.
 
     trunc = (in_digits, key_limbs): optional read-path gadget truncation
     per step."""
@@ -148,11 +150,16 @@ def trace_steps(params: Params, ctx: NTTContext, ct, auto_keys_ntt: dict,
         return ct
     in_digits, key_limbs = trunc
     lead = ct.shape[:-3]
-    keys = torch.stack(
-        [kernel_key_rows(truncate_key(auto_keys_ntt[g], in_digits, key_limbs))
-         for g in gals], dim=0)  # [S, P, T, M, N]
-    out = ntt_cuda.fused_trace(ctx, ct.reshape((-1,) + ct.shape[-3:]), keys,
-                               tuple(gals))
+    rows = [kernel_key_rows(truncate_key(auto_keys_ntt[g], in_digits, key_limbs))
+            for g in gals]  # [P, T, M, N] a step
+    ct2 = ct.reshape((-1,) + ct.shape[-3:])
+    if not fused_path_active(ctx):
+        Td = rows[0].shape[1] // (ct.shape[-3] - 1)
+        for g, key in zip(gals, rows):
+            ct2 = ntt_cuda.trace_step(ctx, ct2, key, g, Td,
+                                      ntt_cuda.fused_external_fold)
+        return ct2.reshape(ct.shape)
+    out = ntt_cuda.fused_trace(ctx, ct2, torch.stack(rows, dim=0), tuple(gals))
     return out.reshape(lead + out.shape[1:])
 
 
@@ -176,6 +183,9 @@ def extract_slots(params: Params, ctx: NTTContext, ct, count: int,
 
     tree=True: all levels in ONE launch (ops.ntt_cuda.fused_split_tree)
     when dilate == 1 and the tree has 2 .. 64 leaves; the same integers.
+    A two-pass context (the composed routes, ops.ntt.fused_path_active)
+    refuses it: there each level is one trace step plus X^-t (2x - child0),
+    one fold launch a level (the JAX package ignores its tree there).
 
     bounded_support=True: the caller guarantees that ct's plaintext is
     exactly zero outside slots [0, count) (the write path's deltas).
@@ -194,6 +204,9 @@ def extract_slots(params: Params, ctx: NTTContext, ct, count: int,
     be a multiple of dilate; s, tail and pre-scale are the global
     quantities."""
     n = params.n
+    if tree and not fused_path_active(ctx):
+        raise ValueError("the one-launch split tree has no two-pass body: "
+                         "a composed-route context extracts level by level")
     s = max(count - 1, 0).bit_length()  # ceil(log2(count))
     assert (1 << s) <= n
     assert dilate >= 1 and dilate & (dilate - 1) == 0 and dilate <= (1 << s)
@@ -238,8 +251,12 @@ def extract_slots(params: Params, ctx: NTTContext, ct, count: int,
         g = gals[l]
         lead = nodes.shape[:-3]
         flat = nodes.reshape((-1,) + nodes.shape[-3:])
-        c0, c1 = ntt_cuda.fused_split(ctx, flat, 1 << l, g,
-                                      kernel_key_rows(auto_keys_ntt[g]))
+        key = kernel_key_rows(auto_keys_ntt[g])
+        if fused_path_active(ctx):
+            c0, c1 = ntt_cuda.fused_split(ctx, flat, 1 << l, g, key)
+        else:
+            c0, c1 = ntt_cuda.split_level(ctx, flat, 1 << l, g, key,
+                                          ntt_cuda.fused_external_fold)
         nodes = torch.cat([c0.reshape(lead + c0.shape[1:]),
                            c1.reshape(lead + c1.shape[1:])], dim=-4)
     if dilate > 1 and log_d == s:

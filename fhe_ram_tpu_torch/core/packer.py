@@ -29,7 +29,7 @@ import warnings
 import torch
 
 from ..params import Params
-from ..ops.ntt import NTTContext
+from ..ops.ntt import NTTContext, fused_path_active
 from ..ops import limb as limb_ops
 from ..ops import ntt_cuda
 from . import keyswitch
@@ -40,15 +40,23 @@ def _merge_level(params: Params, ctx: NTTContext, A, B, t: int, g: int,
     """One batched merge: normalize(A + X^t B + KS(sigma_g(A - X^t B))).
 
     The rotate, the u/v combination and the automorphism all run inside
-    the keyswitch kernel (ops.ntt_cuda.fused_pack_merge).  trunc =
-    (in_digits, key_limbs): optional read-path gadget truncation."""
+    the keyswitch kernel (ops.ntt_cuda.fused_pack_merge); on the composed
+    routes (a two-pass context, ops.ntt.fused_path_active) they are torch
+    glue around one fold launch.  trunc = (in_digits, key_limbs): optional
+    read-path gadget truncation.  The JAX package's _merge_level_chunked,
+    which only bounds XLA's memory, is not carried over: the kernels
+    stream the rows of any batch."""
     in_digits, key_limbs = trunc
     lead = A.shape[:-3]
     A2 = A.reshape((-1,) + A.shape[-3:])
     B2 = B.reshape(A2.shape)
     k2 = keyswitch.kernel_key_rows(
         keyswitch.truncate_key(key_ntt, in_digits, key_limbs))
-    out = ntt_cuda.fused_pack_merge(ctx, A2, B2, t, g, k2)
+    if fused_path_active(ctx):
+        out = ntt_cuda.fused_pack_merge(ctx, A2, B2, t, g, k2)
+    else:
+        out = ntt_cuda.pack_merge_level(ctx, A2, B2, t, g, k2,
+                                        ntt_cuda.fused_external_fold)
     return out.reshape(lead + out.shape[1:])
 
 
@@ -160,9 +168,14 @@ def pack(params: Params, ctx: NTTContext, cts, auto_keys_ntt: dict,
 
     tree=True: a full-gadget pack runs per-level merges until at most 32
     leaves remain, then the whole remaining tree in ONE launch
-    (ops.ntt_cuda.fused_pack_tree); the same integers."""
+    (ops.ntt_cuda.fused_pack_tree); the same integers.  A two-pass context
+    (the composed routes) refuses it: the JAX package ignores its tree
+    there, this package says so."""
     M = cts.shape[0]
     n = params.n
+    if tree and not fused_path_active(ctx):
+        raise ValueError("the one-launch pack tree has no two-pass body: a "
+                         "composed-route context merges level by level")
     assert M & (M - 1) == 0, "pad input count to a power of two"
     levels = M.bit_length() - 1
     if levels == 0:

@@ -4,7 +4,9 @@
 //
 // Replaces (function, not structure): fhe_ram_tpu/ops/ntt_pallas.py
 //   _fwd_tile_mxu / _inv_tile_mxu   -> ntt_fwd_smem / ntt_inv_smem
-//   _vmp_invntt                     -> the product loop of fold_row
+//   _fwd_kernel / _inv_kernel, built on _dif_stage / _dit_stage (the
+//   FHERAM_MXU=0 body)              -> ntt_fwd_smem_2pass / ntt_inv_smem_2pass
+//   _vmp_invntt                     -> the product loop of prime_residues
 //   _garner_fold_acc                -> the Garner/digit/scatter loop of fold_row
 //   _carry_normalize                -> the carry loop of fold_row
 //
@@ -151,6 +153,153 @@ __device__ __forceinline__ void ntt_inv_smem(uint32_t* a, int npoly, int log_n,
   __syncthreads();
 }
 
+// ---- the two-pass body ------------------------------------------------------
+// The same twelve stages as ntt_fwd_smem / ntt_inv_smem, in the same order,
+// with the same butterflies and twiddles, so the output is the same bit for
+// bit, spectra included: only who computes which butterfly, and when,
+// differs.  Coefficient k is element (i, j) = (k >> 6, k & 63) of a 64 x 64
+// block.  DIF stages 0-5 (h = 2048 .. 64) pair (i, j) with (i + h/64, j) and
+// never leave a column; stages 6-11 (h = 32 .. 1) stay within a row.  So a
+// pass over the columns runs stages 0-5 and a pass over the rows stages
+// 6-11 (the DIT inverse: rows for its stages 0-5, then columns), with a
+// barrier between the two passes instead of one a stage.
+//
+// A line (column or row) of 64 coefficients is held by LT consecutive lanes
+// of a warp, 64 / LT coefficients a lane in registers: lane t holds line
+// elements e = t + LT * r.  A stage of pair distance d >= LT pairs registers
+// r and r + d / LT of one lane; one of d < LT pairs lanes t and t ^ d
+// (__shfl_xor_sync: each lane computes its own half of the butterfly).  The
+// twiddle of the pair (e, e + d) is the radix-2 body's: stage offset plus
+// (e mod d) * es + (the column, in the column pass), es the element stride.
+// The column pass takes LT = 4 (8 columns a warp: 4-way bank conflicts on
+// its loads and stores; LT = 8 would be 8-way), the row pass LT = 8 (4 rows
+// a warp, 4-way as well).  Wired for n = 4096 (the wrappers take no other).
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t u, uint32_t v, uint32_t p) {
+  uint32_t s = u + v;
+  if (s >= p) s -= p;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t u, uint32_t v, uint32_t p) {
+  uint32_t d = u - v;
+  if ((int)d < 0) d += p;
+  return d;
+}
+
+// One pass of six stages over every line of `npoly` polynomials: kColumns
+// the columns (forward stages 0-5, inverse stages 6-11), else the rows.
+// The lines of a warp are consecutive and 64 * npoly is a multiple of the
+// lines a warp holds, so each warp runs whole loop iterations (full-mask
+// shuffles) whenever blockDim.x is a multiple of 32.
+template <int LT, bool kColumns, bool kInverse>
+__device__ __forceinline__ void ntt_pass(uint32_t* a, int npoly,
+                                         const uint32_t* __restrict__ tw,
+                                         uint32_t p, uint32_t mu40) {
+  constexpr int E = 64 / LT;
+  constexpr int es = kColumns ? 64 : 1;
+  const int t = threadIdx.x % LT;
+  for (int line = threadIdx.x / LT; line < npoly * 64; line += blockDim.x / LT) {
+    const int l = line & 63;
+    uint32_t* base = a + (line >> 6) * 4096 + (kColumns ? l : l * 64);
+    const int tw_line = kColumns ? l : 0;
+    uint32_t v[E];
+#pragma unroll
+    for (int r = 0; r < E; ++r) v[r] = base[(t + LT * r) * es];
+#pragma unroll
+    for (int sl = 0; sl < 6; ++sl) {
+      const int d = kInverse ? 1 << sl : 32 >> sl;       // distance along the line
+      const int off = kInverse ? d * es - 1 : 4096 - 2 * d * es;  // stage table
+      if (d >= LT) {
+        const int dr = d / LT;
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          if (r & dr) continue;
+          const int e = t + LT * r;
+          const uint32_t w = __ldg(tw + off + (e & (d - 1)) * es + tw_line);
+          if (kInverse) {
+            const uint32_t u = v[r], x = mulmod(v[r + dr], w, p, mu40);
+            v[r] = add_mod(u, x, p);
+            v[r + dr] = sub_mod(u, x, p);
+          } else {
+            const uint32_t u = v[r], x = v[r + dr];
+            v[r] = add_mod(u, x, p);
+            v[r + dr] = mulmod(sub_mod(u, x, p), w, p, mu40);
+          }
+        }
+      } else {
+        const bool hi = (t & d) != 0;   // this lane holds the pair's upper half
+#pragma unroll
+        for (int r = 0; r < E; ++r) {
+          const int e = t + LT * r;
+          if (kInverse) {
+            // the upper lane sends w * v, the lower lane u
+            uint32_t mine = v[r];
+            if (hi) mine = mulmod(mine, __ldg(tw + off + (e & (d - 1)) * es + tw_line),
+                                  p, mu40);
+            const uint32_t y = __shfl_xor_sync(0xffffffffu, mine, d);
+            v[r] = hi ? sub_mod(y, mine, p) : add_mod(mine, y, p);
+          } else {
+            const uint32_t y = __shfl_xor_sync(0xffffffffu, v[r], d);
+            v[r] = hi ? mulmod(sub_mod(y, v[r], p),
+                               __ldg(tw + off + (e & (d - 1)) * es + tw_line), p, mu40)
+                      : add_mod(v[r], y, p);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < E; ++r) base[(t + LT * r) * es] = v[r];
+  }
+}
+
+// ntt_fwd_smem's contract (natural order in, bit-reversed out, canonical,
+// npoly polys back to back, opening barrier after the caller's loads) with
+// two barriers inside instead of eleven.
+__device__ __forceinline__ void ntt_fwd_smem_2pass(uint32_t* a, int npoly,
+                                                   const uint32_t* __restrict__ tw,
+                                                   uint32_t p, uint32_t mu40) {
+  __syncthreads();
+  ntt_pass<4, true, false>(a, npoly, tw, p, mu40);    // stages 0-5, columns
+  __syncthreads();
+  ntt_pass<8, false, false>(a, npoly, tw, p, mu40);   // stages 6-11, rows
+  __syncthreads();
+}
+
+// ntt_inv_smem's contract, likewise.
+__device__ __forceinline__ void ntt_inv_smem_2pass(uint32_t* a, int npoly,
+                                                   const uint32_t* __restrict__ tw,
+                                                   uint32_t p, uint32_t mu40) {
+  __syncthreads();
+  ntt_pass<8, false, true>(a, npoly, tw, p, mu40);    // stages 0-5, rows
+  __syncthreads();
+  ntt_pass<4, true, true>(a, npoly, tw, p, mu40);     // stages 6-11, columns
+  __syncthreads();
+}
+
+// The body every kernel of a translation unit runs: the two-pass body when
+// the unit is built with -DFHE_NTT_TWO_PASS (ops/ntt_cuda.py builds ntt.cu,
+// fold.cu and external.cu once with it and once without), radix-2 else.
+__device__ __forceinline__ void ntt_fwd_body(uint32_t* a, int npoly, int log_n,
+                                             const uint32_t* __restrict__ tw,
+                                             uint32_t p, uint32_t mu40) {
+#ifdef FHE_NTT_TWO_PASS
+  ntt_fwd_smem_2pass(a, npoly, tw, p, mu40);
+#else
+  ntt_fwd_smem(a, npoly, log_n, tw, p, mu40);
+#endif
+}
+
+__device__ __forceinline__ void ntt_inv_body(uint32_t* a, int npoly, int log_n,
+                                             const uint32_t* __restrict__ tw,
+                                             uint32_t p, uint32_t mu40) {
+#ifdef FHE_NTT_TWO_PASS
+  ntt_inv_smem_2pass(a, npoly, tw, p, mu40);
+#else
+  ntt_inv_smem(a, npoly, log_n, tw, p, mu40);
+#endif
+}
+
 // sigma_g evaluated at output index j: returns the source index and sets
 // `neg` when the coefficient changes sign.  ginv = g^-1 mod 2n.
 __device__ __forceinline__ int sigma_src(int j, int ginv, int n, bool& neg) {
@@ -284,6 +433,65 @@ struct TraceStepGlue : CoefficientDigits {
 // them when cs = 1, through L2 by any block of the cluster otherwise).
 // keys: uint32[.., T, M, n] of one digit/step; prime p starts at
 // keys + p * key_pstride.
+//
+// prime_residues is the part of a row fold that one prime takes: the T digit
+// polys forward-transformed (or their spectra as given), the products with
+// this prime's key rows kp (uint32[T, M, n]) summed over T, and the output
+// polys m_lo <= m < m_hi sh.mc at a time through ONE batched inverse pass;
+// each residue (canonical, times psi^-i / n) goes to store(m, i, r).  It
+// returns with the block synchronised, so shared memory may be overwritten.
+template <class Glue, class Store>
+__device__ __forceinline__ void prime_residues(const Glue& glue, int pi,
+                                               const uint32_t* __restrict__ kp,
+                                               int m_lo, int m_hi,
+                                               const FoldShape& sh,
+                                               const FheConsts& c,
+                                               const FheTables& tb,
+                                               uint32_t* smem, Store store) {
+  const int log_n = c.log_n;
+  const int n = 1 << log_n;
+  const int T = sh.T, M = sh.M;
+  uint32_t* spec = smem;
+  uint32_t* acc = smem + T * n;
+  const uint32_t p = c.p[pi];
+  const uint32_t mu40 = c.mu40[pi];
+  const uint64_t mu64 = c.mu64[pi];
+  const uint32_t* psi = tb.psi + pi * n;
+  const uint32_t* inv_psi = tb.inv_psi + pi * n;
+
+  if (glue.spectral()) {
+    for (int idx = threadIdx.x; idx < T * n; idx += blockDim.x)
+      spec[idx] = lift(glue.spectrum(pi, idx >> log_n, idx & (n - 1)), p, mu64);
+    __syncthreads();
+  } else {
+    for (int idx = threadIdx.x; idx < T * n; idx += blockDim.x) {
+      const int t = idx >> log_n, i = idx & (n - 1);
+      const uint32_t r = lift(glue.digit(t, i), p, mu64);
+      spec[idx] = mulmod(r, __ldg(psi + i), p, mu40);
+    }
+    ntt_fwd_body(spec, T, log_n, tb.fwd_tw + pi * n, p, mu40);
+  }
+
+  // mc output polys at a time: their products, ONE batched inverse pass
+  // (the body's barriers once for all of them), their stores
+  for (int m0 = m_lo; m0 < m_hi; m0 += sh.mc) {
+    const int cnt = min(sh.mc, m_hi - m0);
+    for (int idx = threadIdx.x; idx < cnt * n; idx += blockDim.x) {
+      const int i = idx & (n - 1);
+      const uint32_t* km = kp + (long long)(m0 + (idx >> log_n)) * n + i;
+      uint64_t s = 0;
+      for (int t = 0; t < T; ++t)
+        s += (uint64_t)spec[t * n + i] * __ldg(km + (long long)t * M * n);
+      acc[idx] = reduce64(s, p, mu64);
+    }
+    ntt_inv_body(acc, cnt, log_n, tb.inv_tw + pi * n, p, mu40);
+    for (int idx = threadIdx.x; idx < cnt * n; idx += blockDim.x)
+      store(m0 + (idx >> log_n), idx & (n - 1),
+            mulmod(acc[idx], __ldg(inv_psi + (idx & (n - 1))), p, mu40));
+  }
+  __syncthreads();  // the spectra may be overwritten now
+}
+
 template <class Row, class Glue>
 __device__ __forceinline__ void fold_row(Row& row, const Glue& glue,
                                          const uint32_t* __restrict__ keys,
@@ -292,11 +500,8 @@ __device__ __forceinline__ void fold_row(Row& row, const Glue& glue,
                                          const FheTables& tb,
                                          uint32_t* scratch, int* out,
                                          uint32_t* smem) {
-  const int log_n = c.log_n;
-  const int n = 1 << log_n;
-  const int T = sh.T, M = sh.M;
-  uint32_t* spec = smem;
-  uint32_t* acc = smem + T * n;
+  const int n = 1 << c.log_n;
+  const int M = sh.M;
 
   const int cs = row.cs;
   const int rank = row.rank();
@@ -306,44 +511,9 @@ __device__ __forceinline__ void fold_row(Row& row, const Glue& glue,
 
   row.sync();  // a previous row fold may still read scratch / write `out`
   for (int pi = rank % ps; pi < FHE_P; pi += ps) {
-    const uint32_t p = c.p[pi];
-    const uint32_t mu40 = c.mu40[pi];
-    const uint64_t mu64 = c.mu64[pi];
-    const uint32_t* psi = tb.psi + pi * n;
-    const uint32_t* inv_psi = tb.inv_psi + pi * n;
-
-    if (glue.spectral()) {
-      for (int idx = threadIdx.x; idx < T * n; idx += blockDim.x)
-        spec[idx] = lift(glue.spectrum(pi, idx >> log_n, idx & (n - 1)), p, mu64);
-      __syncthreads();
-    } else {
-      for (int idx = threadIdx.x; idx < T * n; idx += blockDim.x) {
-        const int t = idx >> log_n, i = idx & (n - 1);
-        const uint32_t r = lift(glue.digit(t, i), p, mu64);
-        spec[idx] = mulmod(r, __ldg(psi + i), p, mu40);
-      }
-      ntt_fwd_smem(spec, T, log_n, tb.fwd_tw + pi * n, p, mu40);
-    }
-
-    // mc output polys at a time: their products, ONE batched inverse pass
-    // (twelve barriers for all of them), their stores
-    const uint32_t* kp = keys + pi * key_pstride;
-    for (int m0 = m_lo; m0 < m_hi; m0 += sh.mc) {
-      const int cnt = min(sh.mc, m_hi - m0);
-      for (int idx = threadIdx.x; idx < cnt * n; idx += blockDim.x) {
-        const int i = idx & (n - 1);
-        const uint32_t* km = kp + (long long)(m0 + (idx >> log_n)) * n + i;
-        uint64_t s = 0;
-        for (int t = 0; t < T; ++t)
-          s += (uint64_t)spec[t * n + i] * __ldg(km + (long long)t * M * n);
-        acc[idx] = reduce64(s, p, mu64);
-      }
-      ntt_inv_smem(acc, cnt, log_n, tb.inv_tw + pi * n, p, mu40);
-      uint32_t* dst = scratch + ((long long)pi * M + m0) * n;
-      for (int idx = threadIdx.x; idx < cnt * n; idx += blockDim.x)
-        dst[idx] = mulmod(acc[idx], __ldg(inv_psi + (idx & (n - 1))), p, mu40);
-    }
-    __syncthreads();  // spectra are overwritten by the next prime
+    uint32_t* dst = scratch + (long long)pi * M * n;
+    prime_residues(glue, pi, keys + pi * key_pstride, m_lo, m_hi, sh, c, tb, smem,
+                   [&](int m, int i, uint32_t r) { dst[(long long)m * n + i] = r; });
   }
   row.sync();  // all residues of the row are in scratch
 

@@ -29,6 +29,9 @@
 // fewer groups than rows, so the scratch (groups * 3 * M * 16 KB) does not
 // grow with the batch.  Row offsets are 64-bit: A * B * C2 * Lout * n
 // passes 2^31 at A = 64.
+// Built twice, once a transform body of fhe_core.cuh: radix-2, and with
+// -DFHE_NTT_TWO_PASS the two-pass 64 x 64 body, the counterpart of the
+// FHERAM_MXU=0 branches of _fold_kernel_factory (the same integers).
 #include "fhe_core.cuh"
 
 struct FoldGlue {

@@ -8,10 +8,15 @@
 // it, each a 32x32->64 multiply plus an integer Barrett quotient; at the
 // card's memory rate the bytes take ~10 ns, the butterflies far longer.
 // Design: one block per (polynomial, prime); the 4096 coefficients stay
-// in 16 KB of shared memory for all twelve radix-2 stages (one barrier a
-// stage), twiddles come from a per-prime table through the read-only
-// cache, psi^k is folded into the load and psi^-k / n into the store.
-// Device memory is touched once on the way in and once on the way out.
+// in 16 KB of shared memory for all twelve stages, twiddles come from a
+// per-prime table through the read-only cache, psi^k is folded into the
+// load and psi^-k / n into the store.  Device memory is touched once on the
+// way in and once on the way out.  The stages run in one of the two bodies
+// of fhe_core.cuh, chosen when this file is built: radix-2 (one barrier a
+// stage), or with -DFHE_NTT_TWO_PASS the two-pass 64 x 64 body that replaces
+// the FHERAM_MXU=0 kernels _fwd_kernel / _inv_kernel of the same file
+// (columns then rows, registers and warp shuffles, three barriers).  Both
+// give the same integers.
 #include "fhe_core.cuh"
 
 // x: int32[B, n] -> out: uint32[P, B, n], canonical, bit-reversed order.
@@ -26,7 +31,7 @@ ntt_fwd_kernel(const int* __restrict__ x, uint32_t* __restrict__ out, int B,
   const int* src = x + (long long)b * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     smem[i] = mulmod(lift(src[i], p, mu64), __ldg(tb.psi + pi * n + i), p, mu40);
-  ntt_fwd_smem(smem, 1, c.log_n, tb.fwd_tw + pi * n, p, mu40);
+  ntt_fwd_body(smem, 1, c.log_n, tb.fwd_tw + pi * n, p, mu40);
   uint32_t* dst = out + ((long long)pi * B + b) * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = smem[i];
 }
@@ -44,7 +49,7 @@ ntt_inv_kernel(const int* __restrict__ x, int* __restrict__ out, int B,
   const long long row = ((long long)pi * B + b) * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     smem[i] = lift(x[row + i], p, mu64);
-  ntt_inv_smem(smem, 1, c.log_n, tb.inv_tw + pi * n, p, mu40);
+  ntt_inv_body(smem, 1, c.log_n, tb.inv_tw + pi * n, p, mu40);
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     out[row + i] =
         center(mulmod(smem[i], __ldg(tb.inv_psi + pi * n + i), p, mu40), p);

@@ -16,6 +16,20 @@ order (bit-reversed) and the residue range (canonical, [0, p)).  The CUDA
 transform (ops/ntt_cuda.py, csrc/ntt.cu) matches it bit for bit, and the
 fused kernels consume keys prepared by either.  `ntt_inv` returns centered
 residues in [-(p-1)/2, (p-1)/2].
+
+Two transform bodies run the same stages in the kernels (csrc/fhe_core.cuh)
+and give the same integers, spectra included, so keys prepared under one
+serve the other.  A context names its body:
+
+  "radix2"    one barrier a stage; every kernel has it.  The RAM routes
+              each pack merge, trace and split level through its fused
+              kernel (fused_path_active(ctx) is True).
+  "two_pass"  the 64 x 64 block in two passes, columns then rows (the
+              counterpart of the JAX package's FHERAM_MXU=0 body).  Only the
+              transform and the fold kernels have it, so the RAM takes its
+              composed routes: a merge, a trace step or a split level is
+              torch glue around one fold launch.  The counterpart of
+              FHERAM_MXU=0, which fixes body and routing together too.
 """
 
 from __future__ import annotations
@@ -26,6 +40,8 @@ import numpy as np
 import torch
 
 from .modular import I32, I64, prime_consts, to_canonical
+
+BODIES = ("radix2", "two_pass")
 
 
 def _primitive_root(p: int) -> int:
@@ -69,9 +85,13 @@ class NTTContext:
     The stage tables are concatenated ([P, n], last entry unused) so a
     kernel reads each stage contiguously at offset `stage_offsets[s]`.
     Tables live on the CPU; `tables(device)` keeps one int32 copy per
-    device."""
+    device.  `body`: the kernels' transform body (module docstring); the
+    tables do not depend on it."""
 
-    def __init__(self, n: int, primes: tuple[int, ...]):
+    def __init__(self, n: int, primes: tuple[int, ...], body: str = "radix2"):
+        if body not in BODIES:
+            raise ValueError(f"transform body {body!r}: one of {BODIES}")
+        self.body = body
         self.n = n
         self.log_n = n.bit_length() - 1
         assert 1 << self.log_n == n
@@ -136,8 +156,16 @@ class NTTContext:
 
 
 @lru_cache(maxsize=8)
-def get_ntt_context(n: int, primes: tuple[int, ...]) -> NTTContext:
-    return NTTContext(n, tuple(primes))
+def get_ntt_context(n: int, primes: tuple[int, ...],
+                    body: str = "radix2") -> NTTContext:
+    return NTTContext(n, tuple(primes), body)
+
+
+def fused_path_active(ctx: NTTContext) -> bool:
+    """True when the RAM routes through the fused merge, trace and split
+    kernels (the radix-2 body), False for its composed routes (the
+    two-pass body).  Counterpart of ntt_pallas.fused_path_active."""
+    return ctx.body == "radix2"
 
 
 def ntt_fwd_plain(ctx: NTTContext, x):

@@ -2,11 +2,12 @@
 their wrappers, their launch counters, and beside each its plain PyTorch
 version.
 
-Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Eleven kernels (csrc/):
+Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Twelve kernels (csrc/):
 
   ntt_fwd_cuda / ntt_inv_cuda   the batched negacyclic NTT     (ntt.cu)
   fused_external_fold           external product / keyswitch   (fold.cu)
   fused_external_fold_batched   the same with per-item keys    (fold.cu)
+  fused_external                the product without the fold   (external.cu)
   fused_trace                   the whole trace chain          (trace.cu)
   fused_pack_merge              one pack-tree merge level      (pack_merge.cu)
   fused_split                   one split-tree level           (split.cu)
@@ -19,9 +20,21 @@ Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Eleven kernels (csrc/):
 and the two collectives of the row-sharded pack, whose wrappers live in
 parallel/collective.py (collective.cu): ring_all_gather, exchange.
 
-Build: one `nvcc -shared` per source for sm_90a, all started together,
-into `<package>/build/` at first use; plain C entry points bound with
-ctypes.  Nothing is compiled when this module is imported.
+Transform bodies: ntt.cu, fold.cu and external.cu are built twice, once
+with the radix-2 body and once with the two-pass 64 x 64 body
+(-DFHE_NTT_TWO_PASS, csrc/fhe_core.cuh); their wrappers launch the variant
+of the context's body (ops/ntt.py) and count it under their own name, with
+"_two_pass" appended for the second body.  The other kernels have the
+radix-2 body only: a two-pass context routes around them
+(ops.ntt.fused_path_active).  Both bodies give the same
+integers.  Helpers that build the trace step, the split level and the
+pack merge from one fold (trace_step, split_level, pack_merge_level) serve
+the composed routes with the fold kernel and the plain versions with its
+plain version.
+
+Build: one `nvcc -shared` per source and body for sm_90a, all started
+together, into `<package>/build/` at first use; plain C entry points bound
+with ctypes.  Nothing is compiled when this module is imported.
 
 Dispatch: a wrapper given a CUDA tensor launches its kernel or raises --
 there is no fallback to the plain version when the build or the launch
@@ -50,13 +63,17 @@ from . import limb as limb_ops
 from . import poly
 from .crt import crt_fold, garner_consts
 from .modular import I32, I64
-from .ntt import NTTContext, ntt_fwd_plain, ntt_inv_plain
+from .ntt import BODIES, NTTContext, ntt_fwd_plain, ntt_inv_plain
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
-SOURCES = ("ntt", "fold", "trace", "pack_merge", "split", "split_tree",
-           "pack_tree", "blind_rotate", "dp_chain", "bitwise", "collective")
+SOURCES = ("ntt", "fold", "external", "trace", "pack_merge", "split",
+           "split_tree", "pack_tree", "blind_rotate", "dp_chain", "bitwise",
+           "collective")
+# the sources built once a transform body; the others take radix-2 only
+BODY_SOURCES = ("ntt", "fold", "external")
+_BODY_FLAGS = {"radix2": [], "two_pass": ["-DFHE_NTT_TWO_PASS"]}
 
 _MAX_L = 8        # FHE_MAX_L of csrc/fhe_core.cuh
 _MAX_STEPS = 16   # FHE_MAX_STEPS: steps of a trace launch, levels of a tree launch
@@ -75,11 +92,14 @@ _MAX_ROW_GROUPS = 1024
 
 # Kernel launches since the last reset_launches(): one count per wrapper,
 # incremented where the wrapper launches its kernel and nowhere else.
-LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "fused_external_fold": 0,
-            "fused_external_fold_batched": 0, "fused_trace": 0,
-            "fused_pack_merge": 0, "fused_split": 0, "fused_split_tree": 0,
-            "fused_pack_tree": 0, "fused_blind_rotate": 0, "fused_dp_chain": 0,
-            "fused_bitwise": 0, "ring_all_gather": 0, "exchange": 0}
+# The wrappers of both bodies count the two-pass variant apart.
+_BODY_WRAPPERS = ("ntt_fwd", "ntt_inv", "fused_external_fold",
+                  "fused_external_fold_batched", "fused_external")
+LAUNCHES = dict.fromkeys(
+    _BODY_WRAPPERS + tuple(f"{w}_two_pass" for w in _BODY_WRAPPERS)
+    + ("fused_trace", "fused_pack_merge", "fused_split", "fused_split_tree",
+       "fused_pack_tree", "fused_blind_rotate", "fused_dp_chain",
+       "fused_bitwise", "ring_all_gather", "exchange"), 0)
 
 _force_plain = False
 _libs = None
@@ -167,40 +187,48 @@ def _find_nvcc() -> str:
 
 
 def build_kernels(verbose: bool = False):
-    """Compile csrc/*.cu into build/ (one nvcc per source, in parallel)
-    and return {name: ctypes library}.  Raises on any compiler error."""
+    """Compile csrc/*.cu into build/ (one nvcc per source and body, in
+    parallel) and return {(name, body): ctypes library}.  Raises on any
+    compiler error."""
     nvcc = _find_nvcc()
     header = (_CSRC / "fhe_core.cuh").read_bytes()
     _BUILD.mkdir(exist_ok=True)
     jobs, paths = [], {}
     for name in SOURCES:
         src = _CSRC / f"{name}.cu"
-        tag = hashlib.sha256(header + src.read_bytes()).hexdigest()[:16]
-        so = _BUILD / f"libfhe_{name}_{tag}.so"
-        paths[name] = so
-        if so.exists():
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-I", str(_CSRC), "-o", str(tmp), str(src)]
-        jobs.append((name, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for name, so, tmp, proc in jobs:
+        for body in BODIES if name in BODY_SOURCES else ("radix2",):
+            flags = _BODY_FLAGS[body]
+            # the body's flags are part of the tag and the name: the two
+            # variants of one source must not overwrite each other
+            tag = hashlib.sha256(header + src.read_bytes()
+                                 + " ".join(flags).encode()).hexdigest()[:16]
+            so = _BUILD / f"libfhe_{name}_{body}_{tag}.so"
+            paths[name, body] = so
+            if so.exists():
+                continue
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                   *flags, "-I", str(_CSRC), "-o", str(tmp), str(src)]
+            jobs.append((f"csrc/{name}.cu ({body})", so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for what, so, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed on {what}:\n{log}")
         if verbose:
-            print(log)
+            print(f"{what}:\n{log}")
         os.replace(tmp, so)
 
     vp, ci, cip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    libs = {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
+    libs = {key: ctypes.CDLL(str(path)) for key, path in paths.items()}
     sigs = {
         ("ntt", "fhe_ntt_fwd"): [vp, vp, ci, _Consts, _Tables, vp],
         ("ntt", "fhe_ntt_inv"): [vp, vp, ci, _Consts, _Tables, vp],
         ("fold", "fhe_fold"): [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                _FoldShape, _Consts, _Tables, vp],
+        ("external", "fhe_external"): [vp, vp, vp, ci, _FoldShape, _Consts,
+                                       _Tables, vp],
         ("trace", "fhe_trace"): [vp, vp, vp, vp, vp, ci, _TraceSteps, ci,
                                  _FoldShape, _Consts, _Tables, vp],
         ("pack_merge", "fhe_pack_merge"): [vp, vp, vp, vp, vp, ci, ci, ci, ci,
@@ -229,10 +257,12 @@ def build_kernels(verbose: bool = False):
                                                 vp],
         ("collective", "fhe_exchange"): [ShardPtrs, ci, ci, ctypes.c_longlong, vp],
     }
-    for (lib, fn), argtypes in sigs.items():
-        f = getattr(libs[lib], fn)
-        f.argtypes = argtypes
-        f.restype = ci
+    for (name, body), lib in libs.items():
+        for (src, fn), argtypes in sigs.items():
+            if src == name:
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ci
     return libs
 
 
@@ -245,8 +275,13 @@ def ensure_built(verbose: bool = False):
     return _libs
 
 
-def _lib(name: str):
-    return ensure_built()[name]
+def _lib(name: str, body: str = "radix2"):
+    return ensure_built()[name, body]
+
+
+def _counter(wrapper: str, ctx: NTTContext) -> str:
+    """The LAUNCHES key of a launch of `wrapper`'s kernel in ctx's body."""
+    return wrapper if ctx.body == "radix2" else f"{wrapper}_two_pass"
 
 
 def _consts(ctx: NTTContext) -> _Consts:
@@ -372,12 +407,12 @@ def ntt_fwd_cuda(ctx: NTTContext, x):
     B = x2.shape[0]
     out = torch.empty((P, B, n), dtype=I32, device=x.device)
     if B:
-        fn = _lib("ntt").fhe_ntt_fwd
+        fn = _lib("ntt", ctx.body).fhe_ntt_fwd
         with torch.cuda.device(x.device):
             err = fn(x2.data_ptr(), out.data_ptr(), B, _consts(ctx),
                      _tables(ctx, x.device), _stream())
         _check(err, "ntt_fwd")
-        LAUNCHES["ntt_fwd"] += 1
+        LAUNCHES[_counter("ntt_fwd", ctx)] += 1
     return out.reshape((P,) + lead + (n,))
 
 
@@ -393,12 +428,12 @@ def ntt_inv_cuda(ctx: NTTContext, x):
     B = x2.shape[1]
     out = torch.empty((P, B, n), dtype=I32, device=x.device)
     if B:
-        fn = _lib("ntt").fhe_ntt_inv
+        fn = _lib("ntt", ctx.body).fhe_ntt_inv
         with torch.cuda.device(x.device):
             err = fn(x2.data_ptr(), out.data_ptr(), B, _consts(ctx),
                      _tables(ctx, x.device), _stream())
         _check(err, "ntt_inv")
-        LAUNCHES["ntt_inv"] += 1
+        LAUNCHES[_counter("ntt_inv", ctx)] += 1
     return out.reshape(shape)
 
 
@@ -483,13 +518,13 @@ def _launch_fold(wrapper: str, ctx: NTTContext, x, keys_ntt, out_limbs: int,
     scratch = torch.empty((groups, P, M, n), dtype=I32, device=x.device)
     sh = _fold_shape(rows, T, M, c2, out_limbs, sign, n)
     with torch.cuda.device(x.device):
-        err = _lib("fold").fhe_fold(
+        err = _lib("fold", ctx.body).fhe_fold(
             x.data_ptr(), keys_ntt.data_ptr(),
             None if base is None else base.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), rows, B, groups, int(x_is_ntt), digits, sh,
             _consts(ctx), _tables(ctx, x.device), _stream())
     _check(err, wrapper)
-    LAUNCHES[wrapper] += 1
+    LAUNCHES[_counter(wrapper, ctx)] += 1
     return out
 
 
@@ -561,27 +596,107 @@ def fused_external_fold_batched(ctx: NTTContext, x, keys_ntt, out_limbs: int,
 
 
 # --------------------------------------------------------------------------
-# kernel 3: the trace chain
+# kernel 12: the external product without the fold
 # --------------------------------------------------------------------------
 
-def _trace_step_plain(ctx, ct, key, g, Td):
-    """normalize(ct + KS(sigma_g(ct))) for one prepared key [P, T, M, N]."""
+def fused_external_plain(ctx: NTTContext, x, keys_ntt):
+    """Plain version of `fused_external`: forward NTT, int64 products summed
+    over T, inverse NTT."""
+    P, T, M, n = keys_ntt.shape
+    spec = ntt_fwd_plain(ctx, x).to(I64)              # [P, B, T, N]
+    acc = torch.zeros((P, x.shape[0], M, n), dtype=I64, device=x.device)
+    for t in range(T):
+        acc = acc + spec[:, :, t, None, :] * keys_ntt[:, t][:, None].to(I64)
+    return ntt_inv_plain(ctx, torch.remainder(acc, ctx.consts(4, x.device)).to(I32))
+
+
+def fused_external(ctx: NTTContext, x, keys_ntt):
+    """The external product core in one launch, without the CRT fold:
+
+        out[p, b, m] = sum_t x[b, t] (*) key[t, m]  mod prime p
+
+    x: int32[B, T, N] gadget digits (coefficient domain, any int32);
+    keys_ntt: int32[P, T, M, N] prepared key rows.  Returns int32[P, B, M, N]
+    centered residues of the convolutions, for ops.crt.crt_fold.  On no
+    path of the RAM (nor is its counterpart in the JAX package)."""
+    B, T, n = x.shape
+    P, T2, M, n2 = keys_ntt.shape
+    if T2 != T or n2 != n or n != ctx.n or P != len(ctx.primes):
+        raise ValueError(f"x {tuple(x.shape)} does not fit keys {tuple(keys_ntt.shape)}")
+    if keys_ntt.device != x.device:
+        raise ValueError(f"keys_ntt lies on {keys_ntt.device}, x on {x.device}")
+    _fold_limits(T, M, 1, 1, n)
+    if not _use_kernel(ctx, x):
+        return fused_external_plain(ctx, x, keys_ntt)
+    x = _require(x, "x")
+    keys_ntt = _require(keys_ntt, "keys_ntt")
+    out = torch.empty((P, B, M, n), dtype=I32, device=x.device)
+    if B == 0:
+        return out
+    mc = max(1, min(3, M, _MAX_SMEM // (4 * n) - T))
+    sh = _FoldShape(T, M, M, 1, 1, 1, mc, 1)
+    with torch.cuda.device(x.device):
+        err = _lib("external", ctx.body).fhe_external(
+            x.data_ptr(), keys_ntt.data_ptr(), out.data_ptr(), B, sh,
+            _consts(ctx), _tables(ctx, x.device), _stream())
+    _check(err, "fused_external")
+    LAUNCHES[_counter("fused_external", ctx)] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# one fold and its glue: a trace step, a split level, a pack merge
+# --------------------------------------------------------------------------
+# `fold` is fused_external_fold (the composed routes: one launch of the fold
+# kernel, the rest torch glue) or fused_external_fold_plain (the plain
+# versions of the fused trace, split and merge kernels).
+
+def trace_step(ctx: NTTContext, ct, key, g: int, Td: int, fold):
+    """normalize(ct + KS(sigma_g(ct))) of rows ct [B, C2, L, N] against one
+    prepared key [P, T, M, N] (T = rank * Td: the top Td limbs of the mask
+    components are the digits)."""
     B, C2, L, n = ct.shape
     rank = C2 - 1
     sa = poly.automorphism(ct, g)
     x = sa[:, :rank, :Td].reshape(B, rank * Td, n)
     base = ct.clone()
     base[:, rank] += sa[:, rank]
-    return fused_external_fold_plain(ctx, x, key[:, None], L, C2, base=base,
-                                     sign=-1)
+    return fold(ctx, x, key[:, None], L, C2, base=base, sign=-1)
 
+
+def split_level(ctx: NTTContext, ct, t_rot: int, g: int, key, fold):
+    """One split-tree level: (child0, child1) = (one trace step on ct,
+    normalize(X^-t (2 ct - child0))); key [P, rank * L, M, N]."""
+    child0 = trace_step(ctx, ct, key, g, ct.shape[2], fold)
+    child1 = limb_ops.normalize(poly.rotate(2 * ct - child0, -t_rot))
+    return child0, child1
+
+
+def pack_merge_level(ctx: NTTContext, A, B, t_rot: int, g: int, key, fold):
+    """One pack-tree merge: normalize(u + KS(sigma_g(v))), u/v = A +- X^t B,
+    rows [nb, C2, L, N]; key [P, rank * Td, M, N]."""
+    nb, C2, L, n = A.shape
+    rank = C2 - 1
+    Td = key.shape[1] // rank
+    xb = poly.rotate(B, t_rot)
+    u = A + xb
+    sv = poly.automorphism(A - xb, g)
+    x = sv[:, :rank, :Td].reshape(nb, rank * Td, n)
+    base = u.clone()
+    base[:, rank] += sv[:, rank]
+    return fold(ctx, x, key[:, None], L, C2, base=base, sign=-1)
+
+
+# --------------------------------------------------------------------------
+# kernel 3: the trace chain
+# --------------------------------------------------------------------------
 
 def fused_trace_plain(ctx: NTTContext, ct, keys_stacked, gal_els):
     S, P, T, M, n = keys_stacked.shape
     C2 = ct.shape[1]
     Td = T // (C2 - 1)
     for s, g in enumerate(gal_els):
-        ct = _trace_step_plain(ctx, ct, keys_stacked[s], g, Td)
+        ct = trace_step(ctx, ct, keys_stacked[s], g, Td, fused_external_fold_plain)
     return ct
 
 
@@ -629,18 +744,7 @@ def fused_trace(ctx: NTTContext, ct, keys_stacked, gal_els):
 # --------------------------------------------------------------------------
 
 def fused_pack_merge_plain(ctx: NTTContext, A, B, t_rot: int, g: int, key_ntt):
-    P, T, M, n = key_ntt.shape
-    nb, C2, L, _ = A.shape
-    rank = C2 - 1
-    Td = T // rank
-    xb = poly.rotate(B, t_rot)
-    u = A + xb
-    sv = poly.automorphism(A - xb, g)
-    x = sv[:, :rank, :Td].reshape(nb, rank * Td, n)
-    base = u.clone()
-    base[:, rank] += sv[:, rank]
-    return fused_external_fold_plain(ctx, x, key_ntt[:, None], L, C2,
-                                     base=base, sign=-1)
+    return pack_merge_level(ctx, A, B, t_rot, g, key_ntt, fused_external_fold_plain)
 
 
 def fused_pack_merge(ctx: NTTContext, A, B, t_rot: int, g: int, key_ntt):
@@ -683,10 +787,7 @@ def fused_pack_merge(ctx: NTTContext, A, B, t_rot: int, g: int, key_ntt):
 # --------------------------------------------------------------------------
 
 def fused_split_plain(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
-    L = ct.shape[2]
-    child0 = _trace_step_plain(ctx, ct, key_ntt, g, L)
-    child1 = limb_ops.normalize(poly.rotate(2 * ct - child0, -t_rot))
-    return child0, child1
+    return split_level(ctx, ct, t_rot, g, key_ntt, fused_external_fold_plain)
 
 
 def fused_split(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):

@@ -72,10 +72,17 @@ def auto_inverse(n: int, g: int) -> int:
     return pow(g % (2 * n), -1, 2 * n)
 
 
+@lru_cache(maxsize=None)
+def _auto_tables_on(n: int, g: int, device):
+    """_auto_tables on `device`, made once: a copy from the host on every
+    call would make the host wait for the card (the composed routes apply
+    sigma_g 18 times a read)."""
+    src, sign = _auto_tables(n, g)
+    return torch.as_tensor(src, device=device), torch.as_tensor(sign, device=device)
+
+
 def automorphism(x, g: int):
     """Apply sigma_g (static galois element g). x: int32[..., N]."""
     n = x.shape[-1]
-    src, sign = _auto_tables(n, g)
-    src_t = torch.as_tensor(src, device=x.device)
-    sign_t = torch.as_tensor(sign, device=x.device).to(x.dtype)
-    return torch.index_select(x, -1, src_t) * sign_t
+    src_t, sign_t = _auto_tables_on(n, g % (2 * n), x.device)
+    return torch.index_select(x, -1, src_t) * sign_t.to(x.dtype)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..params import Params
-from ..ops.ntt import NTTContext, ntt_fwd
+from ..ops.ntt import NTTContext, fused_path_active, ntt_fwd
 from ..ops import ntt_cuda
 from ..core import ggsw, rng
 
@@ -151,7 +151,16 @@ def coordinate_product_batched(params: Params, ctx: NTTContext, ct,
     remaining digits chain on the carry.
 
     ct_ntt: optional spectra of ct's digit rows ([P, rows, C*L, N], from
-    `spectral_cache`): skips even that one transform."""
+    `spectral_cache`): skips even that one transform.
+
+    On the composed routes (a two-pass context, ops.ntt.fused_path_active)
+    a chain of several digits takes no spectral input: every address's
+    chain starts from ct's coefficients, as the JAX package's composed
+    fallback runs it (its MXU=0 fold kernel refuses chained spectral
+    input), and a cache given for such a chain is refused.  That route
+    hands the batched fold A copies of ct's digit rows (A x rows x C*D x N
+    int32: ~1.5 GB at A = 64 on a narrow-digit 2^18 preset), so keep its
+    batches small."""
     dig = coords_prep_b.shape[2]
     coords_prep_b = _truncate_coord(coords_prep_b, trunc, dig)
     n = params.n
@@ -159,6 +168,14 @@ def coordinate_product_batched(params: Params, ctx: NTTContext, ct,
     L = ct.shape[-2]
     assert C2 == C and D <= L and (D == L or dig == 1)
     lead_shape = ct.shape[:-3]
+    if dig > 1 and not fused_path_active(ctx):
+        if ct_ntt is not None:
+            raise ValueError("a spectral cache feeds chained CMux digits only "
+                             "on the fused routes (radix-2 context)")
+        x = ct[..., :D, :].reshape(1, -1, C * D, n).expand(A, -1, -1, -1)
+        y = ntt_cuda.fused_external_fold_batched(ctx, x, _batched_keys(coords_prep_b),
+                                                 L, C2)
+        return y.reshape((A,) + lead_shape + (C2, L, n))
     if ct_ntt is None:
         ct_ntt = ntt_fwd(ctx, ct[..., :D, :].reshape(-1, C * D, n))
     elif D < L:

@@ -375,15 +375,34 @@ class FheRam:
     tree_kernels=True runs every full-gadget pack of at most 32 leaves
     (wider ones after per-level merges down to 32) and every slot
     extraction of at most 64 slots in ONE kernel launch each instead of
-    one a level; all results are the same integers."""
+    one a level; all results are the same integers.
+
+    composed=True is the composed configuration, the counterpart of the
+    JAX package's FHERAM_NTT=pallas FHERAM_MXU=0: the server's context has
+    the two-pass transform body (ops.ntt), and every pack merge, trace
+    step and split level is torch glue around one launch of the fold
+    kernel (ops.ntt_cuda.pack_merge_level, trace_step, split_level) instead
+    of a launch of the merge, trace or split kernel.  The same integers as
+    the default.  It refuses tree_kernels=True (the trees have no two-pass
+    body) and a spectral cache for chained CMux digits (the JAX package's
+    MXU=0 fold refuses chained spectral input; single-digit coordinates,
+    as at every wide-digit preset, take the cache).  The JAX package's
+    _chunked_product and _merge_level_chunked only bound XLA's memory and
+    give the same integers; the fold kernel streams its rows, so they are
+    not carried over."""
 
     def __init__(self, params: Params,
                  keys_prepared: keys_mod.EvaluationKeysPrepared,
-                 device="cuda", tree_kernels: bool = False):
+                 device="cuda", tree_kernels: bool = False,
+                 composed: bool = False):
+        if tree_kernels and composed:
+            raise ValueError("tree_kernels=True needs the fused routes: the "
+                             "one-launch trees have no two-pass body")
         self.params = params
         self.tree_kernels = bool(tree_kernels)
         self.device = ntt_cuda.require_device(device)
-        self.ctx = get_ntt_context(params.n, params.primes)
+        self.ctx = get_ntt_context(params.n, params.primes,
+                                   "two_pass" if composed else "radix2")
         self.keys = keys_prepared
         for g, k in keys_prepared.atk_glwe.items():
             self._on_device(f"trace key g={g}", k)

@@ -23,7 +23,7 @@ from functools import lru_cache
 import torch
 
 from ..params import Params
-from ..ops.ntt import NTTContext
+from ..ops.ntt import NTTContext, fused_path_active
 from ..ops.modular import I32
 from ..ops import limb as limb_ops
 from ..ops import poly
@@ -79,7 +79,13 @@ def vm_cycle(params: Params, ctx: NTTContext,
 
     Returns (rd, fetched, new_data): the ALU result (register write-back),
     the RAM word at the pointer before the store, and a NEW RAM state with
-    select_store's merged word written at the pointer."""
+    select_store's merged word written at the pointer.
+
+    A two-pass context (the composed routes, ops.ntt.fused_path_active) is
+    refused: the VM's composed routes are not ported yet."""
+    if not fused_path_active(ctx):
+        raise ValueError("vm_cycle has no composed routes yet: pass a radix-2 "
+                         "context (ops.ntt.get_ntt_context's default)")
     if bits != 8 * params.word_size:
         raise ValueError(f"the cycle writes {bits // 8} bytes into words of "
                          f"{params.word_size}")

@@ -31,16 +31,20 @@ def test_port_has_the_expected_layout():
                  "parallel/collective.py", "parallel/mesh.py"):
         assert want in names, want
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
-        "fhe_core.cuh", "ntt.cu", "fold.cu", "trace.cu", "pack_merge.cu",
-        "split.cu", "split_tree.cu", "pack_tree.cu", "blind_rotate.cu",
-        "dp_chain.cu", "bitwise.cu", "collective.cu"}
+        "fhe_core.cuh", "ntt.cu", "fold.cu", "external.cu", "trace.cu",
+        "pack_merge.cu", "split.cu", "split_tree.cu", "pack_tree.cu",
+        "blind_rotate.cu", "dp_chain.cu", "bitwise.cu", "collective.cu"}
     # every source the build names is there, and nothing is left unnamed
     from fhe_ram_tpu_torch.ops import ntt_cuda
     assert {f"{s}.cu" for s in ntt_cuda.SOURCES} == {
         p.name for p in (PORT / "csrc").glob("*.cu")}
-    assert set(ntt_cuda.LAUNCHES) == {
-        "ntt_fwd", "ntt_inv", "fused_external_fold",
-        "fused_external_fold_batched", "fused_trace", "fused_pack_merge",
+    # the kernels built with both transform bodies count the two-pass
+    # variant apart
+    both = {"ntt_fwd", "ntt_inv", "fused_external_fold",
+            "fused_external_fold_batched", "fused_external"}
+    assert set(ntt_cuda.BODY_SOURCES) == {"ntt", "fold", "external"}
+    assert set(ntt_cuda.LAUNCHES) == both | {f"{k}_two_pass" for k in both} | {
+        "fused_trace", "fused_pack_merge",
         "fused_split", "fused_split_tree", "fused_pack_tree",
         "fused_blind_rotate", "fused_dp_chain", "fused_bitwise",
         "ring_all_gather", "exchange"}
@@ -74,6 +78,7 @@ def test_importing_the_port_loads_no_jax():
         "assert callable(ram.FheRam.rmw_batch) and callable(ram.rmw_batch_impl)\n"
         "assert callable(ntt_cuda.fused_split_tree) and callable(ntt_cuda.fused_pack_tree)\n"
         "assert callable(packer.pack_tree) and callable(packer.pack_prefix)\n"
+        "assert callable(ntt_cuda.fused_external) and callable(ntt.fused_path_active)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fhe_ram_tpu' or m.startswith('fhe_ram_tpu.')]\n"
         "assert not bad, bad\n")

@@ -348,3 +348,121 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tks.extract_slots(TWIDE, tctx, ct, 2, {}, dilate=2)
     with pytest.raises(AssertionError):  # the count a multiple of dilate
         tks.extract_slots(TWIDE, tctx, ct, 3, {}, dilate=2, residue=0)
+
+
+# ---------------------------------------------------------------------------
+# kernel 12 and the JAX package's FHERAM_MXU=0 bodies
+# ---------------------------------------------------------------------------
+
+PRIMES = JFULL.primes
+
+
+def test_fused_external_matches_jax_interpret():
+    """Kernel 12's plain version (any transform body: the spectra are the
+    same) against the JAX package's fused_external_pallas in interpret mode
+    at B=2, T=3, M=2: each side prepares the keys with its own transform;
+    the residues are compared centered (the JAX kernel's are lazily
+    balanced until to_canonical)."""
+    from fhe_ram_tpu.ops.modular import to_canonical
+    from fhe_ram_tpu.ops.ntt_pallas import (fused_external_pallas,
+                                            get_pallas_context, ntt_fwd_pallas)
+
+    rnd = np.random.default_rng(12)
+    B, T, M, n = 2, 3, 2, 4096
+    x = rnd.integers(-(1 << 16), 1 << 16, size=(B, T, n)).astype(np.int32)
+    kc = rnd.integers(-(1 << 16), 1 << 16, size=(T, M, n)).astype(np.int32)
+    pctx = get_pallas_context(n, PRIMES)
+    p = jnp.asarray(PRIMES, jnp.int32).reshape(-1, 1, 1, 1)
+    want = np.asarray(_jit(lambda x_, k_: to_canonical(fused_external_pallas(
+        pctx, x_, ntt_fwd_pallas(pctx, k_, interpret=True), interpret=True), p))(
+            jnp.asarray(x), jnp.asarray(kc)))
+    for body in ("radix2", "two_pass"):
+        tctx = tget_ctx(n, PRIMES, body)
+        got = ntt_cuda.fused_external(tctx, _t(x), ntt_cuda.ntt_fwd_cuda(tctx, _t(kc)))
+        assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want), body
+    with pytest.raises(ValueError):  # T of the digits and of the keys differ
+        ntt_cuda.fused_external(tctx, _t(x[:, :2]), torch.zeros((3, T, M, n), dtype=torch.int32))
+
+
+# The JAX package fixes its transform body when ntt_pallas is imported
+# (FHERAM_MXU), so its MXU=0 bodies run in a process of their own: kernel 1's
+# round trip and a convolution, kernel 12 and kernel 2 (B=1, T=2, M=2), all
+# in interpret mode under one jit, the residues made centered.
+_MXU0_SCRIPT = """
+import functools, sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from fhe_ram_tpu.ops import ntt_pallas as npl
+from fhe_ram_tpu.ops.modular import mul_mod, prime_consts, reduce_once, to_canonical
+
+assert not npl._USE_MXU
+inp = dict(np.load(sys.argv[1]))
+primes = tuple(int(q) for q in inp.pop("primes"))
+pctx = npl.get_pallas_context(4096, primes)
+
+def canon(a):
+    return to_canonical(a, jnp.asarray(primes, jnp.int32).reshape((-1,) + (1,) * (a.ndim - 1)))
+
+def run(a, b, x, keys):
+    fa = npl.ntt_fwd_pallas(pctx, a, interpret=True)
+    fb = npl.ntt_fwd_pallas(pctx, b, interpret=True)
+    p, ip = prime_consts(primes, 3)
+    k = npl.ntt_fwd_pallas(pctx, keys, interpret=True)
+    return dict(
+        round_trip=canon(npl.ntt_inv_pallas(pctx, fa, interpret=True)),
+        conv=canon(npl.ntt_inv_pallas(pctx, reduce_once(mul_mod(fa, fb, p, ip), p, ip),
+                                      interpret=True)),
+        external=canon(npl.fused_external_pallas(pctx, x, k, interpret=True)),
+        fold=npl.fused_external_fold_pallas(pctx, x[:1, :2], k[:, None, :2, :2], 2, 2,
+                                            interpret=True))
+
+jit = functools.partial(jax.jit, compiler_options={
+    "xla_backend_optimization_level": 0, "xla_cpu_parallel_codegen_split_count": 1})
+out = jit(run)(**{k: jnp.asarray(v) for k, v in inp.items()})
+np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in out.items()})
+"""
+
+
+def test_plain_versions_match_the_jax_mxu0_bodies(tmp_path):
+    """Kernels 1, 12 and 2 of the JAX package with their FHERAM_MXU=0 bodies
+    (the two-pass 64 x 64 form the port's two-pass body stands for) against
+    the port's plain versions under a two-pass context, bit for bit after
+    to_canonical: the round trip and the convolution residues of kernel 1,
+    kernel 12's residues, kernel 2's normalized limbs."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from fhe_ram_tpu_torch.ops.ntt import ntt_fwd_plain, ntt_inv_plain
+
+    rnd = np.random.default_rng(6)
+    n = 4096
+    inp = dict(a=rnd.integers(-(1 << 20), 1 << 20, size=(2, n)),
+               b=rnd.integers(-(1 << 20), 1 << 20, size=(2, n)),
+               x=rnd.integers(-(1 << 16), 1 << 16, size=(2, 3, n)),
+               keys=rnd.integers(-(1 << 16), 1 << 16, size=(3, 2, n)))
+    inp = {k: v.astype(np.int32) for k, v in inp.items()}
+    np.savez(tmp_path / "in.npz", primes=np.asarray(PRIMES), **inp)
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, FHERAM_MXU="0", JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(root),
+                                                        os.environ.get("PYTHONPATH")])))
+    subprocess.run([sys.executable, "-c", _MXU0_SCRIPT, str(tmp_path / "in.npz"),
+                    str(tmp_path / "out.npz")], check=True, cwd=root, env=env,
+                   timeout=300)
+    want = np.load(tmp_path / "out.npz")
+
+    tctx = tget_ctx(n, PRIMES, "two_pass")
+    fa, fb = ntt_fwd_plain(tctx, _t(inp["a"])), ntt_fwd_plain(tctx, _t(inp["b"]))
+    p = torch.tensor(PRIMES, dtype=torch.int64).reshape(-1, 1, 1)
+    keys = ntt_fwd_plain(tctx, _t(inp["keys"]))
+    got = dict(
+        round_trip=ntt_inv_plain(tctx, fa),
+        conv=ntt_inv_plain(tctx, (fa.to(torch.int64) * fb.to(torch.int64) % p).to(torch.int32)),
+        external=ntt_cuda.fused_external(tctx, _t(inp["x"]), keys),
+        fold=ntt_cuda.fused_external_fold(tctx, _t(inp["x"][:1, :2]),
+                                          keys[:, None, :2, :2].contiguous(), 2, 2))
+    for k, v in got.items():
+        assert v.dtype == torch.int32 and np.array_equal(v.numpy(), want[k]), k

@@ -141,6 +141,44 @@ def client():
         WRITE_WORD is written at the third fixture address."""
         return w_ct, np.asarray(jax_refs(_addresses(jpar)[2])[2])
 
+    def jax_read_batch():
+        """read_batch_impl at the last three fixture addresses, computed once."""
+        if "batch" not in c.jresults:
+            idxs = _addresses(jpar)[1:]
+            coords_b = tuple(
+                jnp.stack([addrs[i].coordinates[j] for i in idxs], axis=0)
+                for j in range(len(addrs[idxs[0]].coordinates)))
+            c.jresults["batch"] = np.asarray(_jit(
+                lambda d, cb, atk: jram.read_batch_impl(
+                    jpar, jctx, d,
+                    tuple(jax.vmap(lambda g: jggsw.prepare(jctx, g))(x) for x in cb),
+                    {g: jkeys.keyswitch.key_prepare(jctx, k) for g, k in atk.items()}))(
+                        ram_ct, coords_b, ek.atk_glwe))
+        return c.jresults["batch"]
+
+    def jax_rmw_batch():
+        """(the words, the JAX client's write words, rmw_batch_impl's
+        read-outs and new RAM) at the last two fixture addresses, computed
+        once."""
+        if "rmw_batch" not in c.jresults:
+            idxs = _addresses(jpar)[2:]
+            words = np.array([[0x5A, 0xC3, 0x17, 0x80], [0x01, 0xFE, 0x7F, 0x33]],
+                             dtype=np.uint8)[:, :jpar.word_size]
+            w_cts = [jram.encrypt_write_word(jpar, jctx, js_ntt, w, src)
+                     for w in words]
+            coords_b = tuple(
+                jnp.stack([addrs[i].coordinates[j] for i in idxs], axis=0)
+                for j in range(len(addrs[idxs[0]].coordinates)))
+            want_outs, want_data = _jit(
+                lambda d, cb, w, atk, atk_ggsw, tsk: jram.rmw_batch_impl(
+                    jpar, jctx, d,
+                    tuple(jax.vmap(lambda g: jggsw.prepare(jctx, g))(x) for x in cb),
+                    cb, w, prepared(atk, atk_ggsw, tsk)))(
+                        ram_ct, coords_b, jnp.stack(w_cts), *jkey_args)
+            c.jresults["rmw_batch"] = (words, w_cts, np.asarray(want_outs),
+                                       np.asarray(want_data))
+        return c.jresults["rmw_batch"]
+
     def port_address(idx):
         """(Address, AddressPrepared) of the port for a fixture address."""
         taddr = from_reference(address=addrs[idx], device="cpu").address
@@ -155,6 +193,7 @@ def client():
             assert int(val) == word and noise < -(tpar.k_pt + 1), (idx, i)
 
     c.jax_read_rpw, c.jax_write = jax_read_rpw, jax_write
+    c.jax_read_batch, c.jax_rmw_batch = jax_read_batch, jax_rmw_batch
     c.port_address, c.check_word = port_address, check_word
     return c
 
@@ -238,17 +277,7 @@ def test_read_batch_matches_jax_and_the_single_reads(client, cached):
     ignores its cache and recomputes: one JAX result serves both)."""
     c = client
     idxs = _addresses(c.jpar)[1:]
-    if "batch" not in c.jresults:
-        coords_b = tuple(
-            jnp.stack([c.addrs[i].coordinates[j] for i in idxs], axis=0)
-            for j in range(len(c.addrs[idxs[0]].coordinates)))
-        c.jresults["batch"] = np.asarray(_jit(
-            lambda d, cb, atk: jram.read_batch_impl(
-                c.jpar, c.jctx, d,
-                tuple(jax.vmap(lambda g: jggsw.prepare(c.jctx, g))(x) for x in cb),
-                {g: jkeys.keyswitch.key_prepare(c.jctx, k) for g, k in atk.items()}))(
-                    c.ram_ct, coords_b, c.ek.atk_glwe))
-    want = c.jresults["batch"]
+    want = c.jax_read_batch()
 
     state = c.server.init_state(c.carried.data)
     preps = [c.port_address(i)[1] for i in idxs]
@@ -272,19 +301,7 @@ def test_rmw_batch_matches_jax_on_the_jax_clients_ciphertexts(client):
     the read-outs decode to the old words and the read-back to the new."""
     c = client
     idxs = _addresses(c.jpar)[2:]
-    words = np.array([[0x5A, 0xC3, 0x17, 0x80], [0x01, 0xFE, 0x7F, 0x33]],
-                     dtype=np.uint8)[:, :c.jpar.word_size]
-    w_cts = [jram.encrypt_write_word(c.jpar, c.jctx, c.js_ntt, w, c.src)
-             for w in words]
-    coords_b = tuple(
-        jnp.stack([c.addrs[i].coordinates[j] for i in idxs], axis=0)
-        for j in range(len(c.addrs[idxs[0]].coordinates)))
-    want_outs, want_data = _jit(
-        lambda d, cb, w, atk, atk_ggsw, tsk: jram.rmw_batch_impl(
-            c.jpar, c.jctx, d,
-            tuple(jax.vmap(lambda g: jggsw.prepare(c.jctx, g))(x) for x in cb),
-            cb, w, jkeys.prepare(c.jpar, jkeys.EvaluationKeys(atk, atk_ggsw, tsk))))(
-                c.ram_ct, coords_b, jnp.stack(w_cts), *c.jkey_args)
+    words, w_cts, want_outs, want_data = c.jax_rmw_batch()
 
     pairs = [c.port_address(i) for i in idxs]
     coeff_b = stack_addresses([a for a, _ in pairs])
@@ -334,3 +351,56 @@ def test_sharded_read_and_rmw_match_jax_on_the_jax_clients_ciphertexts(client):
         shards, tprep.coordinates, taddr.coordinates, tw, c.server.keys)
     assert np.array_equal(tmesh.unshard_rows(new).numpy(), want_new)
     c.check_word(outs[0], idx, c.data)
+
+
+def test_composed_server_matches_jax_and_the_fused_server(client):
+    """FheRam(composed=True), the composed configuration (the two-pass
+    transform body; each pack merge, trace step and split level is glue
+    around one fold), on the JAX client's ciphertexts: its read, read_
+    prepare_write + write, read_batch and rmw_batch equal the JAX package's
+    and the fused server's, bit for bit.  At this ring (n = 64) the JAX
+    package takes its composed routes itself (its fused_path_active needs
+    n = 4096), so this holds the port's routing to the reference's."""
+    from fhe_ram_tpu_torch.ops.ntt import fused_path_active
+
+    c = client
+    cserver = tram.FheRam(c.tpar, c.server.keys, device="cpu", composed=True)
+    assert not fused_path_active(cserver.ctx) and fused_path_active(c.server.ctx)
+    state = c.server.init_state(c.carried.data)
+    for idx in _addresses(c.jpar):
+        prep = c.port_address(idx)[1]
+        got = cserver.read(state, prep)
+        assert np.array_equal(got.numpy(), np.asarray(c.jax_read_rpw(idx)[0])), idx
+        assert torch.equal(got, c.server.read(state, prep))
+
+    idx = _addresses(c.jpar)[2]
+    w_ct, want_new = c.jax_write()
+    taddr, tprep = c.port_address(idx)
+    tw = from_reference(word=w_ct, device="cpu").word
+    out, pending = cserver.read_prepare_write(state, tprep)
+    assert np.array_equal(out.numpy(), np.asarray(c.jax_read_rpw(idx)[1][0]))
+    new_state = cserver.write(pending, tw, taddr)
+    assert np.array_equal(new_state.data.numpy(), want_new)
+    f_out, f_pending = c.server.read_prepare_write(state, tprep)
+    assert torch.equal(out, f_out)
+    assert torch.equal(new_state.data, c.server.write(f_pending, tw, taddr).data)
+
+    preps = stack_addresses([c.port_address(i)[1] for i in _addresses(c.jpar)[1:]])
+    got = cserver.read_batch(state, preps)
+    assert np.array_equal(got.numpy(), c.jax_read_batch())
+    assert torch.equal(got, c.server.read_batch(state, preps))
+    # the JAX package's MXU=0 fold refuses chained spectral input: so does
+    # the composed server a cache for this preset's two-digit coordinates
+    with pytest.raises(ValueError):
+        cserver.read_batch(state, preps, cache=cserver.spectral_cache(state))
+
+    _, w_cts, want_outs, want_data = c.jax_rmw_batch()
+    pairs = [c.port_address(i) for i in _addresses(c.jpar)[2:]]
+    coeff_b = stack_addresses([a for a, _ in pairs])
+    prep_b = stack_addresses([p for _, p in pairs])
+    w_b = from_reference(words=w_cts, device="cpu").words
+    outs, new_state = cserver.rmw_batch(state, prep_b, coeff_b, w_b)
+    assert np.array_equal(outs.numpy(), want_outs)
+    assert np.array_equal(new_state.data.numpy(), want_data)
+    f_outs, f_state = c.server.rmw_batch(state, prep_b, coeff_b, w_b)
+    assert torch.equal(outs, f_outs) and torch.equal(new_state.data, f_state.data)
