@@ -17,10 +17,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  cycle's shapes at PARAMS_2_18_READOPT, the collectives at
                  the row-sharded paths' shapes at PARAMS_2_24_READOPT
                  (torch.equal: integer arithmetic, tolerance 0), with times
-                 (the collectives also beside torch.stack / clone); kernels
-                 1, 2, 5 and 12 in both transform bodies, the two-pass
-                 variant also bit-equal to the radix-2 one; kernel 12 (on
-                 no path) also folded and held against kernel 2
+                 (the collectives also beside one torch.stack that makes
+                 every shard's output); kernels 1 and 12 in both transform
+                 bodies, the two-pass variant also bit-equal to the radix-2
+                 one; kernels 2 and 5 (one build for both bodies) with their
+                 registers and blocks an SM, and timed at the 2^24 read's
+                 level 0; kernel 12 (on no path) also folded and held
+                 against kernel 2
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -48,8 +51,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  two-pass transform body; each pack merge, trace step and
                  split level one fold launch): the read phase's addresses,
                  each bit-equal to the fused server's read and decoded;
-                 every launch of the window a two-pass variant (none of
-                 kernels 3, 4, 6-11); composed_read_ms beside read_ms
+                 every launch of the window a fold (kernels 2, 5) or a
+                 two-pass variant (none of kernels 3, 4, 6-11, no radix-2
+                 transform); composed_read_ms beside read_ms
   composed_rmw   4 chained composed cycles at fresh addresses: old words out,
                  new words back, each cycle bit-equal to the fused server's
                  (read-out and all of the new RAM); rpw_ms, write_ms
@@ -99,13 +103,20 @@ nvcc; imports fhe_ram_tpu_torch only.
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# The plain versions held against the 2^24 paths allocate single int64
+# blocks of several GB with ~60 GB of the card in use; expandable segments
+# keep the allocator's cache from fragmenting into pieces too small for
+# them (a caller's own setting stands).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # Peak rates of one H100 SXM at its full 700 W limit (NVIDIA's data sheet):
 # device memory, and 32-bit arithmetic outside the tensor cores.  The
@@ -471,19 +482,19 @@ def main():
     keys_ep = spectra((1, T_ep, M_ep, n)).reshape(P, 1, T_ep, M_ep, n)
     x0 = limbs((W * R, T_ep, n))
     base0 = limbs((W * R, C, L, n), bits=17)
-    check_bodies("fused_external_fold", f"x[{W*R},{T_ep},4096] keys[3,1,{T_ep},{M_ep},4096]",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, x0, keys_ep, L, C))
-    check_bodies("fused_external_fold", f"x[{W*R},{T_ep},4096] with base, sign=-1",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, x0, keys_ep, L, C,
+    check("fused_external_fold", f"x[{W*R},{T_ep},4096] keys[3,1,{T_ep},{M_ep},4096]",
+          lambda: ntt_cuda.fused_external_fold(ctx, x0, keys_ep, L, C))
+    check("fused_external_fold", f"x[{W*R},{T_ep},4096] with base, sign=-1",
+          lambda: ntt_cuda.fused_external_fold(ctx, x0, keys_ep, L, C,
                                                base=base0, sign=-1))
     x1 = limbs((W, T_ep, n))
-    check_bodies("fused_external_fold", f"x[{W},{T_ep},4096] (level 1)",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, x1, keys_ep, L, C))
+    check("fused_external_fold", f"x[{W},{T_ep},4096] (level 1)",
+          lambda: ntt_cuda.fused_external_fold(ctx, x1, keys_ep, L, C))
     # two chained digits (T == C*L), a shape the narrow-digit presets use
     keys_ch = spectra((2, C * L, C * Lge, n)).reshape(P, 2, C * L, C * Lge, n)
     xch = limbs((W, C * L, n))
-    check_bodies("fused_external_fold", f"x[{W},{C*L},4096] two chained digits",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, xch, keys_ch, L, C))
+    check("fused_external_fold", f"x[{W},{C*L},4096] two chained digits",
+          lambda: ntt_cuda.fused_external_fold(ctx, xch, keys_ch, L, C))
 
     # kernel 3: the 12-step trace of W = 4 rows
     gals = PAR.trace_gal_els
@@ -511,45 +522,45 @@ def main():
     # same with two chained digits, the full-gadget shapes of rpw / write,
     # and the two folds of the GGSW inversion (5 key limbs folded to 3)
     s0 = ntt_cuda.ntt_fwd_cuda(ctx, x0)            # [3, 256, 4, N]
-    check_bodies("fused_external_fold", f"x_is_ntt x[3,{W*R},{T_ep},4096]",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, s0, keys_ep, L, C,
+    check("fused_external_fold", f"x_is_ntt x[3,{W*R},{T_ep},4096]",
+          lambda: ntt_cuda.fused_external_fold(ctx, s0, keys_ep, L, C,
                                                x_is_ntt=True))
     sch = ntt_cuda.ntt_fwd_cuda(ctx, xch)
-    check_bodies("fused_external_fold", f"x_is_ntt x[3,{W},{C*L},4096] two chained digits",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, sch, keys_ch, L, C,
+    check("fused_external_fold", f"x_is_ntt x[3,{W},{C*L},4096] two chained digits",
+          lambda: ntt_cuda.fused_external_fold(ctx, sch, keys_ch, L, C,
                                                x_is_ntt=True))
     keys_ef = spectra((1, T_ef, M_ef, n)).reshape(P, 1, T_ef, M_ef, n)
     for B_ in (W * R, W):
         xf = limbs((B_, T_ef, n))
-        check_bodies("fused_external_fold", f"x[{B_},{T_ef},4096] keys[3,1,{T_ef},{M_ef},4096] (full gadget)",
-              lambda c: lambda: ntt_cuda.fused_external_fold(c, xf, keys_ef, L, C))
+        check("fused_external_fold", f"x[{B_},{T_ef},4096] keys[3,1,{T_ef},{M_ef},4096] (full gadget)",
+              lambda: ntt_cuda.fused_external_fold(ctx, xf, keys_ef, L, C))
     D_ = PAR.dnum_ggsw
     keys_ak = spectra((1, rank * D_, C * Lgk, n)).reshape(P, 1, rank * D_, C * Lgk, n)
     xak, bak = limbs((D_, rank * D_, n)), limbs((D_, C, Lg, n), bits=17)
-    check_bodies("fused_external_fold", f"x[{D_},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (inversion keyswitch)",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, xak, keys_ak, Lg, C,
+    check("fused_external_fold", f"x[{D_},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (inversion keyswitch)",
+          lambda: ntt_cuda.fused_external_fold(ctx, xak, keys_ak, Lg, C,
                                                base=bak, sign=-1))
     keys_ts = spectra((1, C * D_, C * Lgk, n)).reshape(P, 1, C * D_, C * Lgk, n)
     xts = limbs((D_, C * D_, n))
-    check_bodies("fused_external_fold", f"x[{D_},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (tensor key)",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, xts, keys_ts, Lg, C))
+    check("fused_external_fold", f"x[{D_},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (tensor key)",
+          lambda: ntt_cuda.fused_external_fold(ctx, xts, keys_ts, Lg, C))
 
     # kernel 5: level 0 of a batched read (shared spectra, per-address keys)
     # and level 1 (per-address rows), with base and sign once
     keys_b = spectra((NA, 1, T_ep, M_ep, n)).permute(1, 0, 2, 3, 4, 5).contiguous()
-    check_bodies("fused_external_fold_batched",
+    check("fused_external_fold_batched",
           f"x_is_ntt x[3,{W*R},{T_ep},4096] keys[{NA},3,1,{T_ep},{M_ep},4096] (level 0)",
-          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, s0, keys_b, L, C,
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, s0, keys_b, L, C,
                                                        x_is_ntt=True),
           plain_reps=2)
     xb1 = limbs((NA, W, T_ep, n))
-    check_bodies("fused_external_fold_batched",
+    check("fused_external_fold_batched",
           f"x[{NA},{W},{T_ep},4096] keys[{NA},3,1,{T_ep},{M_ep},4096] (level 1)",
-          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, xb1, keys_b, L, C))
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, xb1, keys_b, L, C))
     bb1 = limbs((NA, W, C, L, n), bits=17)
-    check_bodies("fused_external_fold_batched",
+    check("fused_external_fold_batched",
           f"x[{NA},{W},{T_ep},4096] with base, sign=-1",
-          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, xb1, keys_b, L, C,
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, xb1, keys_b, L, C,
                                                        base=bb1, sign=-1))
 
     # kernel 12 in both bodies (on no path: held here alone): a small shape
@@ -592,24 +603,24 @@ def main():
         1, 0, 2, 3, 4, 5).contiguous()
     sf0 = ntt_cuda.ntt_fwd_cuda(ctx, limbs((W * R, T_ef, n)))
     key_polys = NB_RMW * P * T_ef * M_ef
-    check_bodies("fused_external_fold_batched",
+    check("fused_external_fold_batched",
           f"x_is_ntt x[3,{W*R},{T_ef},4096] keys[{NB_RMW},3,1,{T_ef},{M_ef},4096] (rmw_batch level 0)",
-          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, sf0, keys_bf, L, C,
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, sf0, keys_bf, L, C,
                                                        x_is_ntt=True),
           plain_reps=1,
           work=(poly_b * (P * W * R * T_ef + key_polys + NB_RMW * W * R * C * L),
                 fold_ops(NB_RMW * W * R, T_ef, M_ef, n, spectral=True)))
     del sf0
     xbf1 = limbs((NB_RMW, W, T_ef, n))
-    check_bodies("fused_external_fold_batched",
+    check("fused_external_fold_batched",
           f"x[{NB_RMW},{W},{T_ef},4096] keys[{NB_RMW},3,1,{T_ef},{M_ef},4096] (rmw_batch level 1, d_lo)",
-          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, xbf1, keys_bf, L, C),
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, xbf1, keys_bf, L, C),
           work=(poly_b * (NB_RMW * W * (T_ef + C * L) + key_polys),
                 fold_ops(NB_RMW * W, T_ef, M_ef, n)))
     xbu = limbs((NB_RMW, W * R, T_ef, n))
-    check_bodies("fused_external_fold_batched",
+    check("fused_external_fold_batched",
           f"x[{NB_RMW},{W*R},{T_ef},4096] keys[{NB_RMW},3,1,{T_ef},{M_ef},4096] (rmw_batch upd)",
-          lambda c: lambda: ntt_cuda.fused_external_fold_batched(c, xbu, keys_bf, L, C),
+          lambda: ntt_cuda.fused_external_fold_batched(ctx, xbu, keys_bf, L, C),
           plain_reps=1,
           work=(poly_b * (NB_RMW * W * R * (T_ef + C * L) + key_polys),
                 fold_ops(NB_RMW * W * R, T_ef, M_ef, n)))
@@ -617,16 +628,34 @@ def main():
     # kernel 2: the two folds of the GGSW inversion over all NB_RMW addresses
     nbi = NB_RMW * D_
     xak, bak = limbs((nbi, rank * D_, n)), limbs((nbi, C, Lg, n), bits=17)
-    check_bodies("fused_external_fold", f"x[{nbi},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (batched inversion keyswitch)",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, xak, keys_ak, Lg, C,
+    check("fused_external_fold", f"x[{nbi},{rank*D_},4096] keys[3,1,{rank*D_},{C*Lgk},4096] base, sign=-1 (batched inversion keyswitch)",
+          lambda: ntt_cuda.fused_external_fold(ctx, xak, keys_ak, Lg, C,
                                                base=bak, sign=-1),
           work=(poly_b * (nbi * (rank * D_ + 2 * C * Lg) + P * rank * D_ * C * Lgk),
                 fold_ops(nbi, rank * D_, C * Lgk, n)))
     xts = limbs((nbi, C * D_, n))
-    check_bodies("fused_external_fold", f"x[{nbi},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (batched tensor key)",
-          lambda c: lambda: ntt_cuda.fused_external_fold(c, xts, keys_ts, Lg, C),
+    check("fused_external_fold", f"x[{nbi},{C*D_},4096] keys[3,1,{C*D_},{C*Lgk},4096] out_limbs={Lg} (batched tensor key)",
+          lambda: ntt_cuda.fused_external_fold(ctx, xts, keys_ts, Lg, C),
           work=(poly_b * (nbi * (C * D_ + C * Lg) + P * C * D_ * C * Lgk),
                 fold_ops(nbi, C * D_, C * Lgk, n)))
+    # kernel 2 at the 2^24 read's level 0 (16,384 rows, the read truncation
+    # of PARAMS_2_24_READOPT: the same T and M), timed only: the read_2_24
+    # phase holds that launch against the sharded read, and sharded_vs_plain
+    # the sharded read against the plain versions
+    BR = BPAR.num_rows * BPAR.word_size
+    xbig = torch.randint(-(1 << 16), 1 << 16, (BR, T_ep, n), dtype=torch.int32,
+                         device=dev, generator=torch.Generator(device=dev).manual_seed(
+                             args.seed + 2))
+    fbig = (lambda: ntt_cuda.fused_external_fold(ctx, xbig, keys_ep, L, C))
+    big_bound = bound(poly_b * (BR * T_ep + P * T_ep * M_ep + BR * C * L),
+                      fold_ops(BR, T_ep, M_ep, n))
+    timed_only = {"fused_external_fold": [{
+        "shape": f"x[{BR},{T_ep},4096] keys[3,1,{T_ep},{M_ep},4096] (2^24 read level 0)",
+        "ms": time_ms(fbig, 5, 1, flush), "bound_ms": big_bound[0],
+        "bound_by": big_bound[1],
+        "held_by": "read_2_24 == sharded_read == sharded_vs_plain"}]}
+    del xbig, fbig
+
     # kernels 3 and 4 with the batch folded into the row axis: the trace of
     # NB_RMW x W roots and the first merge level of NB_RMW x W x 32 pairs,
     # untruncated (rmw_batch) and truncated (read_batch)
@@ -723,20 +752,25 @@ def main():
     # kernels 13 and 14: the collectives at the shapes of the row-sharded
     # paths at PARAMS_2_24_READOPT (one pack root a shard, or a batch's)
     BW, BC, BL = BPAR.word_size, BPAR.rank + 1, BPAR.limbs_ct
+    # The library call computes every shard's output in one call, as the
+    # kernel does: the ring's n x n chunks (torch.stack of every shard's n
+    # chunks; the view is free), the exchange's n partner chunks.
     for n_sh, roots in COLLECTIVE_SHAPES["ring_all_gather"]:
         chunks = [limbs((roots * BW, BC, BL, n)) for _ in range(n_sh)]
         check("ring_all_gather", collective_note(n_sh, chunks[0]),
               lambda: tuple(coll_mod.ring_all_gather(chunks)),
               work=(chunk_bytes(chunks[0]) * (n_sh + n_sh * n_sh), 0),
-              library_fn=lambda: torch.stack(chunks))
+              library_fn=lambda: torch.stack(chunks * n_sh).view(
+                  (n_sh, n_sh) + tuple(chunks[0].shape)))
     for n_sh, roots, stride in COLLECTIVE_SHAPES["exchange"]:
         chunks = [limbs((roots * BW, BC, BL, n)) for _ in range(n_sh)]
         check("exchange", collective_note(n_sh, chunks[0], stride),
               lambda: tuple(coll_mod.exchange(chunks, stride)),
               work=(chunk_bytes(chunks[0]) * 2 * n_sh, 0),
-              library_fn=lambda: chunks[1 ^ stride].clone())
+              library_fn=lambda: torch.stack([chunks[k ^ stride] for k in range(n_sh)]))
     del chunks
-    emit({"phase": "kernel_checks", "ok": True, "tolerance": 0, "checks": checks})
+    emit({"phase": "kernel_checks", "ok": True, "tolerance": 0, "checks": checks,
+          "timed_only": timed_only})
     if args.kernels_only:
         return
 
@@ -1122,8 +1156,9 @@ def main():
     # trace step and split level is torch glue around one launch of the fold
     # kernel.  The client's work inside the counted windows (preparing
     # addresses, decrypting) runs under the same context, so every launch
-    # there must be of a two-pass variant: kernels 3, 4 and 6-11 and the
-    # radix-2 variants are not launched at all.  Launches a call, counted
+    # there must be a fold (one build serves both bodies) or a two-pass
+    # variant: kernels 3, 4 and 6-11 and the radix-2 transforms are not
+    # launched at all.  Launches a call, counted
     # from the code: a read or an rpw 20 folds (2 products, 6 merges, 12
     # trace steps); a write 24 (12 trace steps, 2 x 2 inversion folds, 6
     # split levels, the delta's and the update's products) and 2 transforms;
@@ -1132,8 +1167,13 @@ def main():
     cserver = ram_mod.FheRam(PAR, ekp, device=dev, composed=True)
     cctx = cserver.ctx
 
+    # the fold (kernels 2 and 5) is one build for both bodies; every other
+    # launch of a composed window must be a two-pass variant
+    composed_ok = ("fused_external_fold", "fused_external_fold_batched")
+
     def only_two_pass(what, counts):
-        off = {k: v for k, v in counts.items() if v and not k.endswith("_two_pass")}
+        off = {k: v for k, v in counts.items()
+               if v and not (k.endswith("_two_pass") or k in composed_ok)}
         if off:
             fail(f"{what}: launches off the composed routes: {off}")
 
@@ -1148,7 +1188,7 @@ def main():
         ap_ = address_mod.prepare(cctx, c_coeff[idx])
         out, ms, c_per_read = launches_of(lambda: cserver.read(state, ap_))
         expect_launches(f"composed read at {idx}", c_per_read,
-                        fused_external_fold_two_pass=20)
+                        fused_external_fold=20)
         c_read_ms.append(ms)
         if not torch.equal(out, fused_out[idx]):
             fail(f"composed read at {idx}: differs from the fused server's read")
@@ -1184,9 +1224,9 @@ def main():
             lambda: cserver.read_prepare_write(state, ap_))
         new_state, t_wr, l_wr = launches_of(lambda: cserver.write(pending, w_ct, addr))
         expect_launches(f"composed read_prepare_write at {idx}", l_rpw,
-                        fused_external_fold_two_pass=20)
+                        fused_external_fold=20)
         expect_launches(f"composed write at {idx}", l_wr,
-                        fused_external_fold_two_pass=24, ntt_fwd_two_pass=2)
+                        fused_external_fold=24, ntt_fwd_two_pass=2)
         c_cycle_l = {"read_prepare_write": l_rpw, "write": l_wr}
         c_rpw_ms.append(t_rpw)
         c_write_ms.append(t_wr)
@@ -1234,14 +1274,13 @@ def main():
         lambda: cserver.rmw_batch(state, rb_prep_b, rb_coeff_b, rb_w))
     c_batch_launches = dict(ntt_cuda.LAUNCHES)
     only_two_pass("composed_batch", c_batch_launches)
-    expect_launches("composed read_batch", l_cb, fused_external_fold_batched_two_pass=2,
-                    ntt_fwd_two_pass=1, fused_external_fold_two_pass=18)
+    expect_launches("composed read_batch", l_cb, fused_external_fold_batched=2,
+                    ntt_fwd_two_pass=1, fused_external_fold=18)
     expect_launches("composed spectral_cache", l_cc, ntt_fwd_two_pass=1)
     expect_launches("composed read_batch with the cache", l_cbc,
-                    fused_external_fold_batched_two_pass=2,
-                    fused_external_fold_two_pass=18)
-    expect_launches("composed rmw_batch", l_crb, fused_external_fold_batched_two_pass=4,
-                    fused_external_fold_two_pass=28, ntt_fwd_two_pass=3)
+                    fused_external_fold_batched=2, fused_external_fold=18)
+    expect_launches("composed rmw_batch", l_crb, fused_external_fold_batched=4,
+                    fused_external_fold=28, ntt_fwd_two_pass=3)
     if not (torch.equal(c_got, f_batch) and torch.equal(c_got_c, f_batch)):
         fail("composed read_batch: differs from the fused server's")
     if not (torch.equal(c_outs, f_outs) and torch.equal(c_new.data, f_new.data)):
@@ -1929,7 +1968,10 @@ def main():
                "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": rec.get("library_ms")}
+               "library_ms": rec.get("library_ms"),
+               # what a redesign could win at most, the order of ROADMAP's
+               # redesign queue: launches x (ms - bound_ms)
+               "launches_x_excess_ms": total_launches[name] * (rec["ms"] - b_ms)}
         if "per_level_ms" in rec:
             out["per_level_ms"] = rec["per_level_ms"]
         return out
@@ -1938,23 +1980,26 @@ def main():
     nb0 = W * R // 2
     nbr = NB_RMW * W
     kernels = []
-    # kernels 1, 2 and 5 in both bodies: the two-pass variants replace the
-    # same pallas_calls' FHERAM_MXU=0 bodies (_fwd_kernel, _inv_kernel, the
-    # non-MXU branches of _fold_kernel_factory)
-    for sfx, lines in (("", (454, 499, 1158, 1263)), ("_two_pass", (416, 429, 1044, 1044))):
+    # kernel 1 in both bodies: the two-pass variants replace the same
+    # pallas_calls' FHERAM_MXU=0 bodies (_fwd_kernel, _inv_kernel)
+    for sfx, lines in (("", (454, 499)), ("_two_pass", (416, 429))):
         kernels += [
             entry(f"ntt_fwd{sfx}", "ntt.cu", lines[0], 0,
                   36 * poly_b * (1 + P), 36 * P * ntt_ops(n)),
             entry(f"ntt_inv{sfx}", "ntt.cu", lines[1], 0,
-                  36 * poly_b * 2 * P, 36 * P * ntt_ops(n)),
-            entry(f"fused_external_fold{sfx}", "fold.cu", lines[2], 0,
-                  poly_b * (B0 * T_ep + P * T_ep * M_ep + B0 * C * L),
-                  fold_ops(B0, T_ep, M_ep, n)),
-            # level 0 of a batched read of NA addresses: the shared spectra
-            # and NA keys in, NA x (W*R) rows out; no forward transforms
-            entry(f"fused_external_fold_batched{sfx}", "fold.cu", lines[3], 0,
-                  poly_b * (P * B0 * T_ep + NA * P * T_ep * M_ep + NA * B0 * C * L),
-                  fold_ops(NA * B0, T_ep, M_ep, n, spectral=True))]
+                  36 * poly_b * 2 * P, 36 * P * ntt_ops(n))]
+    # kernels 2 and 5: one build for both bodies (it replaces the MXU and
+    # the FHERAM_MXU=0 branches of _fold_kernel_factory alike); every
+    # checked shape, the timed-only 2^24 level 0 too, in per_shape
+    kernels += [
+        entry("fused_external_fold", "fold.cu", 1158, 0,
+              poly_b * (B0 * T_ep + P * T_ep * M_ep + B0 * C * L),
+              fold_ops(B0, T_ep, M_ep, n)),
+        # level 0 of a batched read of NA addresses: the shared spectra
+        # and NA keys in, NA x (W*R) rows out; no forward transforms
+        entry("fused_external_fold_batched", "fold.cu", 1263, 0,
+              poly_b * (P * B0 * T_ep + NA * P * T_ep * M_ep + NA * B0 * C * L),
+              fold_ops(NA * B0, T_ep, M_ep, n, spectral=True))]
     # kernel 12 at the read's level-0 shape, both bodies (the body of the
     # two-pass variant: the non-MXU `kernel` of _fused_kernel_factory)
     kernels += [entry("fused_external", "external.cu", 601, 1),
@@ -1998,6 +2043,10 @@ def main():
             k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",
                                                 "library_ms", "bound_ms")}
                               for r in checks[k["name"]]]
+        if k["name"] in ("fused_external_fold", "fused_external_fold_batched"):
+            k["per_shape"] = [{f: r.get(f) for f in ("shape", "ms", "plain_ms", "bound_ms",
+                                                     "bound_by")}
+                              for r in checks[k["name"]] + timed_only.get(k["name"], [])]
         if k["name"] in VM_KERNELS:
             k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",
                                                 "bound_ms", "bound_by")}

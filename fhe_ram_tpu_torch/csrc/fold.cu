@@ -9,91 +9,501 @@
 // Replaces fhe_ram_tpu/ops/ntt_pallas.py: fused_external_fold_pallas
 // (entry fhe_fold with items = 1) and fused_external_fold_batched (items =
 // A: item a of the rows takes keys[a]; with spectral input ONE operand
-// x[P, B, T, n] is shared by all items, the batched read's level 0).
+// x[P, B, T, n] is shared by all items, the batched read's level 0), both
+// of the JAX package's bodies (the MXU and the FHERAM_MXU=0 branches of
+// _fold_kernel_factory compute the same integers).
 //
 // Bound on this card: operations.  A row reads T * 16 KB of digits and
 // writes C2 * Lout * 16 KB; the key rows (P * T * M * 16 KB an item) are
 // shared by an item's rows and stay in L2.  Against that stand 3 * (T + M)
 // transforms a row (30 at T = 4, M = 6; 3 * M with spectral input), ~25k
 // modular butterflies each.
-// Design: one block per ciphertext row, looping over primes and output
-// polys (fold_row in fhe_core.cuh); with few rows (level 1: B = 4) a
-// thread block cluster per row instead.  Shared memory holds one prime's T
-// spectra and a few accumulators, (T + mc) * 16 KB, so the shape does not
-// depend on P * T spectra fitting on chip (P * T * 16 KB is 192 KB at
-// T = 4 and 288 KB at T = 6, against 227 KB a block).  The M * 3 residue
-// polys of a row go to a scratch buffer in device memory that the wrapper
-// allocates, written once and read once.  The grid is `groups` blocks (or
-// clusters); group g walks rows g, g + groups, ...  Up to the wrapper's cap
-// groups = rows, one row a group; a batched launch of A * 256 rows takes
-// fewer groups than rows, so the scratch (groups * 3 * M * 16 KB) does not
-// grow with the batch.  Row offsets are 64-bit: A * B * C2 * Lout * n
-// passes 2^31 at A = 64.
-// Built twice, once a transform body of fhe_core.cuh: radix-2, and with
-// -DFHE_NTT_TWO_PASS the two-pass 64 x 64 body, the counterpart of the
-// FHERAM_MXU=0 branches of _fold_kernel_factory (the same integers).
+//
+// Design (built once; it serves the fused and the composed routes alike):
+//  * A row is a thread block cluster with one block per prime (cs = 3), or
+//    two such groups (cs = 6) that share the output components when rows
+//    are few.  Block `rank` takes prime rank % 3 and, in group rank / 3,
+//    C2 / (cs / 3) output components.  Persistent clusters walk rows r,
+//    r + clusters, ...
+//  * A block's 256 threads hold 16 coefficients each in registers and run
+//    a 4096-point transform as three radix-16 passes (four radix-2 stages
+//    each, in registers) with two shared-memory exchanges, so two barriers a
+//    transform.  The stages are the radix-2 body's (ntt_fwd_smem /
+//    ntt_inv_smem): DIF natural in, bit-reversed out; DIT back, so spectra
+//    and prepared keys keep kernel 1's order.  Layout Lq of pass q: thread
+//    t, register r holds coefficient
+//        L0: t | r << 8      L1: (t & 15) | r << 4 | (t >> 4) << 8
+//        L2: r | t << 4
+//    and the exchange buffers are XOR-swizzled (swz) so that every pass's
+//    reads and writes are free of bank conflicts.
+//  * Constants multiply by Shoup's method: each table entry is a pair
+//    (w, floor(w * 2^32 / p)) made on the host (ops/ntt.py
+//    NTTContext.shoup_tables), and x * w costs a __umulhi, two multiplies
+//    and no correction: the result lies in [0, 2p) for any x < 2^32.
+//    Butterflies are lazy (Harvey): DIF values in [0, 2p), DIT in [0, 4p),
+//    one conditional subtract a butterfly (p < 2^20 leaves 10 bits).  Only
+//    the key products multiply two variables: T products summed in 64 bits,
+//    one reduction.  The twist psi^i, i = j + 256 r, is psi^j (one pair a
+//    thread) times psi^(256 r) (16 pairs shared by all); likewise the
+//    inverse's psi^-i / n and the twiddles of the outer passes, whose index
+//    j = t | rl << 8 splits the same way: this thread's four pairs (one a
+//    stage) stay in registers for a row's transforms, the 15 shared ones
+//    come from L1.
+//  * The residues stay on chip.  Each block keeps its prime's residues of
+//    one component (Lk polys) in shared memory; after one cluster barrier
+//    every block runs the Garner, digit and carry step over a third of the
+//    coefficients, reading the other two primes' residues over distributed
+//    shared memory.  A second cluster barrier (arrive now, wait before the
+//    buffers are written again) frees them.
+//  * Shared memory: the T spectra (each thread's own 16 coefficients, read
+//    back by the same thread) and the Lk residue polys, which double as the
+//    transforms' exchange buffers: (T + Lk) * 16 KB, 112 KB at T = 4,
+//    Lk = 3, so two blocks fit an SM.
+//  * Occupancy by budget, in one build: the kernel is instantiated twice,
+//    for two blocks an SM (128 registers a thread) and for one (up to 255),
+//    both without spills.  The wrapper (ops/ntt_cuda._fold_blocks) takes
+//    the first where the shape's shared memory lets two blocks share an SM
+//    and the launch has more blocks than the card has SMs, the second
+//    otherwise (few rows, or T + Lk > 7), and a cluster of 6 up to 32 rows
+//    (tools/time_fold_predecessor.py times every choice at every shape).
 #include "fhe_core.cuh"
 
-struct FoldGlue {
-  const int* x;         // [T, n] digit polys of this row (coefficients), or
-  const int* xs;        // spectra of this row: prime pi at xs + pi * xs_pstride
-  long long xs_pstride;
-  const int* base_ptr;  // [C2, Lout, n] of this row, or nullptr
-  int n, Lout;
-  __device__ __forceinline__ bool spectral() const { return xs != nullptr; }
-  __device__ __forceinline__ int spectrum(int pi, int t, int i) const {
-    return xs[pi * xs_pstride + t * n + i];
-  }
-  // through L2: for digit d > 0 another block of the cluster wrote it
-  __device__ __forceinline__ int digit(int t, int i) const { return __ldcg(x + t * n + i); }
-  __device__ __forceinline__ int base(int c2, int l, int i) const {
-    return base_ptr ? base_ptr[(c2 * Lout + l) * n + i] : 0;
-  }
+#define FOLD_THREADS 256   // threads of a fold block: 16 coefficients each
+#define FOLD_N 4096        // the ring degree the fold is wired for
+#define FOLD_MAX_LK 8      // most key limbs (output polys of a component)
+
+// The host's Shoup pairs (w, floor(w * 2^32 / p)), canonical w; per prime
+// (pointers at prime 0, the primes back to back).
+struct FoldTables {
+  const uint2* fwd;      // [P][n] the DIF stage twiddles, laid out as fwd_tw
+  const uint2* inv;      // [P][n] the DIT stage twiddles, laid out as inv_tw
+  const uint2* psi_lo;   // [P][256] psi^j
+  const uint2* psi_hi;   // [P][16] psi^(256 r)
+  const uint2* ipsi_lo;  // [P][256] psi^-j / n
+  const uint2* ipsi_hi;  // [P][16] psi^-(256 r)
+  const uint2* garner;   // [3] p1^-1 mod p2, p1 mod p3, (p1 p2)^-1 mod p3
 };
 
-// rows = A * B ciphertext rows, row r = (item r / B, row r % B of the item).
-// x: int32[A, B, T, n] coefficients, or with x_is_ntt int32[P, B, T, n]
-// spectra shared by all items; keys: uint32[A, P, digits, T, M, n]; base:
-// int32[A, B, C2, Lout, n] or null; out: int32[A, B, C2, Lout, n];
-// scratch: uint32[groups, P, M, n].
-__global__ void __launch_bounds__(FHE_THREADS)
-fold_kernel(const int* __restrict__ x, const uint32_t* __restrict__ keys,
-            const int* __restrict__ base, int* out,
-            uint32_t* scratch, int rows, int B, int x_is_ntt, int digits,
-            FoldShape sh, FheConsts c, FheTables tb) {
-  extern __shared__ uint32_t smem[];
-  const int n = 1 << c.log_n;
-  const int groups = gridDim.x / sh.cs;
-  const int group = blockIdx.x / sh.cs;
-  const long long row_polys = (long long)sh.C2 * sh.Lout;
-  uint32_t* scratch_row = scratch + (long long)group * FHE_P * sh.M * n;
-  const long long dstride = (long long)sh.T * sh.M * n;
-  const long long astride = FHE_P * digits * dstride;
-  ClusterRow row(sh.cs);
-  for (long long r = group; r < rows; r += groups) {
-    const long long a = r / B, b = r % B;
-    int* out_row = out + r * row_polys * n;
-    for (int d = 0; d < digits; ++d) {
-      FoldGlue glue;
-      // digit d > 0 decomposes the previous digit's output (T == C2 * Lout);
-      // fold_row has read all of it before its last phase overwrites it
-      glue.x = d > 0 ? out_row : x_is_ntt ? nullptr : x + r * sh.T * n;
-      glue.xs = d == 0 && x_is_ntt ? x + b * sh.T * n : nullptr;
-      glue.xs_pstride = (long long)B * sh.T * n;
-      glue.base_ptr = base ? base + r * row_polys * n : nullptr;
-      glue.n = n;
-      glue.Lout = sh.Lout;
-      fold_row(row, glue, keys + a * astride + d * dstride, digits * dstride, sh, c,
-               tb, scratch_row, out_row, smem);
+// x * w mod p in [0, 2p) for any x < 2^32, w = (w, w') a Shoup pair, w < p.
+__device__ __forceinline__ uint32_t shoup(uint32_t x, uint2 w, uint32_t p) {
+  return x * w.x - __umulhi(x, w.y) * p;
+}
+
+// [0, 2 * p2) -> [0, p2): one unsigned min (x - p2 wraps when x < p2).
+__device__ __forceinline__ uint32_t lazy_sub(uint32_t x, uint32_t p2) {
+  return min(x, x - p2);
+}
+
+// A table pair, loaded where it stands in the code: a row's twiddles must
+// not be hoisted out of the row loop, where their registers would be held
+// across both transform directions.
+__device__ __forceinline__ uint2 ldg_pair(const uint2* a) {
+  uint2 v;
+  asm volatile("ld.global.nc.v2.u32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "l"(a));
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// Coefficient held by thread t in register r in layout L (see the top):
+// lay_t<L>(t) | lay_r<L>(r), two disjoint bit fields.
+template <int L>
+__device__ __forceinline__ int lay_t(int t) {
+  return L == 0 ? t : L == 1 ? (t & 15) | ((t >> 4) << 8) : t << 4;
+}
+
+template <int L>
+__device__ __forceinline__ constexpr int lay_r(int r) {
+  return L == 0 ? r << 8 : L == 1 ? r << 4 : r;
+}
+
+// Word of an exchange buffer (or residue poly) that holds coefficient i:
+// bits 0-3 XOR bits 5-8, bit 4 XOR bit 8.  In every layout the 32 lanes of
+// a warp then hit 32 distinct banks for each r (tests/test_torch_kernels.py
+// checks it, with the rest of this file's index arithmetic).  swz is linear
+// over GF(2), so the word of (t, r) is swz(lay_t(t)) ^ swz(lay_r(r)): one
+// XOR with a constant a register.
+__device__ __forceinline__ constexpr int swz(int i) {
+  return i ^ ((i >> 5) & 15) ^ ((i >> 4) & 16);
+}
+
+// v, copied where it stands: what the code derives from it (swizzled
+// words, a prime's table pointers) is derived where it is used, not hoisted
+// out of the row loop into registers held across both transform directions.
+__device__ __forceinline__ int fresh(int v) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(v));
+  return v;
+}
+
+// this thread's swizzled base word in layout L
+template <int L>
+__device__ __forceinline__ int swz_base() {
+  return swz(lay_t<L>(fresh((int)threadIdx.x)));
+}
+
+// Write v in layout LA, barrier, read it back in layout LB.
+template <int LA, int LB>
+__device__ __forceinline__ void exchange(uint32_t v[16], uint32_t* buf) {
+  const int a = swz_base<LA>();
+#pragma unroll
+  for (int r = 0; r < 16; ++r) buf[a ^ swz(lay_r<LA>(r))] = v[r];
+  __syncthreads();
+  const int b = swz_base<LB>();
+#pragma unroll
+  for (int r = 0; r < 16; ++r) v[r] = buf[b ^ swz(lay_r<LB>(r))];
+}
+
+// Four DIF stages on v (in [0, 2p), out [0, 2p)): stage s pairs registers r
+// and r + (8 >> s); mul(x, s, rl) is x times the pair's twiddle, in [0, 2p),
+// rl = r's bits below that distance.
+template <class Mul>
+__device__ __forceinline__ void dif16(uint32_t v[16], uint32_t p, const Mul& mul) {
+  const uint32_t p2 = 2 * p;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int hb = 8 >> s;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      if (r & hb) continue;
+      const uint32_t a = v[r], b = v[r + hb];
+      v[r] = lazy_sub(a + b, p2);
+      v[r + hb] = mul(a - b + p2, s, r & (hb - 1));
     }
   }
 }
 
+// Four DIT stages on v (in [0, 4p), out [0, 4p)): stage s pairs registers r
+// and r + (1 << s); mul as in dif16 (x < 4p).
+template <class Mul>
+__device__ __forceinline__ void dit16(uint32_t v[16], uint32_t p, const Mul& mul) {
+  const uint32_t p2 = 2 * p;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int hb = 1 << s;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      if (r & hb) continue;
+      const uint32_t a = lazy_sub(v[r], p2);
+      const uint32_t b = mul(v[r + hb], s, r & (hb - 1));
+      v[r] = a + b;
+      v[r + hb] = a - b + p2;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t prime(const FheConsts& c, int pi) {
+  return pi == 0 ? c.p[0] : pi == 1 ? c.p[1] : c.p[2];
+}
+
+// Forward transform of the digit poly xp (int32[n], read through L2: a
+// digit d > 0 is what the cluster wrote) into this thread's 16 spectrum
+// words spec_t[r * 256 + t] (layout L2); a and b: the exchange buffers,
+// equal when only one is free.  own0[s]: this thread's pass-0 twiddle of
+// rl = 0 at stage s (j = t), psi_t = psi^t.
+template <int kBlocks>
+__device__ __forceinline__ void forward(const int* xp, uint32_t* spec_t, uint32_t* a,
+                                        uint32_t* b, const uint2 own0[4], uint2 psi_t,
+                                        uint32_t p, const FoldTables& tb, int pi) {
+  const int t = threadIdx.x;
+  // at 128 registers (two blocks an SM) the table pointers are made here:
+  // held across the row loop, they spilled
+  if (kBlocks == 2) pi = fresh(pi);
+  const uint2* fwd = tb.fwd + pi * FOLD_N;
+  const uint32_t lift = ((0x80000000u + p - 1) / p) * p;   // int32 + lift >= 0
+  uint32_t v[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int xv = __ldcg(xp + (t | lay_r<0>(r)));
+    const uint32_t u = xv < 0 ? (uint32_t)xv + lift : (uint32_t)xv;
+    v[r] = shoup(shoup(u, ldg_pair(tb.psi_hi + pi * 16 + r), p), psi_t, p);
+  }
+  // stages 0-3 (h = 2048 .. 256, at 4096 - 2h): j = t | rl << 8, whose
+  // twiddle is that of (t, 0) times that of (0, rl)
+  dif16(v, p, [&](uint32_t x, int s, int rl) {
+    if (rl) x = shoup(x, ldg_pair(fwd + 4096 - (4096 >> s) + (rl << 8)), p);
+    return shoup(x, own0[s], p);
+  });
+  if (a == b) __syncthreads();   // the previous transform's last reads
+  exchange<0, 1>(v, a);
+  // stages 4-7 (h = 128 .. 16): j = (t & 15) | rl << 4
+  const int j0 = t & 15;
+  dif16(v, p, [&](uint32_t x, int s, int rl) {
+    return shoup(x, ldg_pair(fwd + 4096 - (256 >> s) + (j0 | (rl << 4))), p);
+  });
+  if (a == b) __syncthreads();
+  exchange<1, 2>(v, b);
+  // stages 8-11 (h = 8 .. 1): j = rl, the same for every thread; j = 0 is 1
+  dif16(v, p, [&](uint32_t x, int s, int rl) {
+    return rl ? shoup(x, ldg_pair(fwd + 4096 - (16 >> s) + rl), p) : lazy_sub(x, 2 * p);
+  });
+#pragma unroll
+  for (int r = 0; r < 16; ++r) spec_t[r * FOLD_THREADS + t] = v[r];
+}
+
+// v[r] = sum_t spec[t] * key[t] at coefficient (t << 4) | r (layout L2), in
+// [0, 2p): 64-bit sums of T products (< 2^45), one Barrett reduction.
+__device__ __forceinline__ void products(uint32_t v[16], const uint32_t* spec,
+                                         const uint32_t* km, int T, long long tstride,
+                                         uint32_t p, uint64_t mu64) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint64_t acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0;
+    for (int tt = 0; tt < T; ++tt) {
+      const uint4* kq = reinterpret_cast<const uint4*>(km + tt * tstride + (t << 4) + 8 * h);
+      const uint4 k0 = __ldg(kq), k1 = __ldg(kq + 1);
+      const uint32_t kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+      const uint32_t* sp = spec + (tt * 16 + 8 * h) * FOLD_THREADS + t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] += (uint64_t)sp[j * FOLD_THREADS] * kk[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[8 * h + j] = (uint32_t)acc[j] - (uint32_t)__umul64hi(acc[j], mu64) * p;
+  }
+}
+
+// An output poly's inverse transform (v: its products, layout L2, [0, 4p)):
+// exchanges through x and then y (equal when only one buffer is free), the
+// canonical residues times psi^-i / n land in y in swizzled order.
+// own2[s]: this thread's pass-2 twiddle of rl = 0 at stage s (j = t);
+// ipsi_t = psi^-t / n.
+__device__ __forceinline__ void inverse(uint32_t v[16], uint32_t* x, uint32_t* y,
+                                        const uint2 own2[4], uint2 ipsi_t, uint32_t p,
+                                        const FoldTables& tb, int pi) {
+  const int t = threadIdx.x;
+  const uint2* inv = tb.inv + pi * FOLD_N;
+  // stages 0-3 (h = 1 .. 8, at h - 1): j = rl, the same for every thread
+  dit16(v, p, [&](uint32_t w, int s, int rl) {
+    return rl ? shoup(w, ldg_pair(inv + (1 << s) - 1 + rl), p) : lazy_sub(w, 2 * p);
+  });
+  exchange<2, 1>(v, x);
+  // stages 4-7 (h = 16 .. 128): j = (t & 15) | rl << 4
+  const int j0 = t & 15;
+  dit16(v, p, [&](uint32_t w, int s, int rl) {
+    return shoup(w, ldg_pair(inv + (16 << s) - 1 + (j0 | (rl << 4))), p);
+  });
+  if (x == y) __syncthreads();
+  exchange<1, 0>(v, y);
+  // stages 8-11 (h = 256 .. 2048): j = t | rl << 8, as in the forward pass 0
+  dit16(v, p, [&](uint32_t w, int s, int rl) {
+    if (rl) w = shoup(w, ldg_pair(inv + (256 << s) - 1 + (rl << 8)), p);
+    return shoup(w, own2[s], p);
+  });
+  const int a = swz_base<0>();
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const uint32_t u =
+        shoup(shoup(v[r], ldg_pair(tb.ipsi_hi + pi * 16 + r), p), ipsi_t, p);
+    y[a ^ swz(lay_r<0>(r))] = lazy_sub(u, p);   // the words it read: no barrier
+  }
+}
+
+// The Garner CRT of one coefficient's canonical residues: the balanced
+// mixed-radix value v1 + p1 v2 + p1 p2 v3 (fhe_core.cuh fold_row's, with
+// Shoup pairs for the three constants).
+__device__ __forceinline__ long long garner(uint32_t r1, uint32_t r2, uint32_t r3,
+                                            const FheConsts& c, const uint2 g[3]) {
+  const uint32_t p1 = c.p[0], p2 = c.p[1], p3 = c.p[2];
+  const int v1 = center(r1, p1);
+  const int v2 = center(lazy_sub(shoup(r2 + 2 * p2 - v1, g[0], p2), p2), p2);
+  const uint32_t tt = shoup((uint32_t)(v2 + (int)(2 * p3)), g[1], p3);   // [0, 2p3)
+  const int v3 = center(lazy_sub(shoup(r3 + 4 * p3 - v1 - tt, g[2], p3), p3), p3);
+  return (long long)v1 + (long long)p1 * v2 + (long long)p1 * p2 * v3;
+}
+
+// The Garner, digit split, limb fold and carry normalize of output
+// component c2 over this block's share of the coefficients (a third, cut at
+// multiples of 32 so that a warp's reads stay in one swizzle block); R_q:
+// the residue polys of the group's block of prime q.
+__device__ __forceinline__ void garner_fold(const uint32_t* R, int grp, int pi, int c2,
+                                            int* out_row, const int* base_row,
+                                            const FoldShape& sh, const FheConsts& c,
+                                            const FoldTables& tb) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const uint32_t* R0 = cluster.map_shared_rank(R, grp * FHE_P);
+  const uint32_t* R1 = cluster.map_shared_rank(R, grp * FHE_P + 1);
+  const uint32_t* R2 = cluster.map_shared_rank(R, grp * FHE_P + 2);
+  const uint2 g[3] = {tb.garner[0], tb.garner[1], tb.garner[2]};
+  const int Lk = sh.Lk, Lout = sh.Lout;
+  const int i_per = (FOLD_N / FHE_P + 31) & ~31;
+  const int i_hi = min(FOLD_N, (pi + 1) * i_per);
+  for (int i = pi * i_per + threadIdx.x; i < i_hi; i += FOLD_THREADS) {
+    const int si = swz(i);
+    int accl[FHE_MAX_L];
+#pragma unroll
+    for (int l = 0; l < FHE_MAX_L; ++l) accl[l] = 0;
+    // unrolled over lk, so that every limb index below is a constant
+#pragma unroll
+    for (int lk = 0; lk < FOLD_MAX_LK; ++lk) {
+      if (lk < Lk) {
+        long long xv = garner(R0[lk * FOLD_N + si], R1[lk * FOLD_N + si],
+                              R2[lk * FOLD_N + si], c, g);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int dg = (int)((xv + 256) & 511) - 256;
+          xv = (xv - dg) >> 9;
+          const int e = 9 * k - 17 * (lk + 1);  // this digit has weight 2^e
+          if (e < 0) {
+            const int tl = (-e - 1) / 17;
+            if (tl < FHE_MAX_L && tl < Lout) accl[tl] += dg * (1 << (e + 17 * (tl + 1)));
+          }
+        }
+      }
+    }
+    int carry = 0;
+#pragma unroll
+    for (int l = FHE_MAX_L - 1; l >= 0; --l) {
+      if (l < Lout) {
+        const long long at = ((long long)c2 * Lout + l) * FOLD_N + i;
+        int v = sh.sign < 0 ? -accl[l] : accl[l];
+        if (base_row) v += base_row[at];
+        v += carry;
+        const int dl = ((v + 65536) & 131071) - 65536;
+        carry = (v - dl) >> 17;
+        out_row[at] = dl;
+      }
+    }
+  }
+}
+
+// rows = A * B ciphertext rows, row r = (item r / B, row r % B of the item).
+// x: int32[A, B, T, n] coefficients, or with x_is_ntt int32[P, B, T, n]
+// spectra shared by all items; keys: uint32[A, P, digits, T, M, n]; base:
+// int32[A, B, C2, Lout, n] or null; out: int32[A, B, C2, Lout, n].  sh.mc
+// is not read.  kBlocks: the blocks an SM the instantiation budgets
+// registers for (2: 128 a thread; 1: up to 255, for launches whose shared
+// memory holds one block an SM anyway, or that have few rows).
+template <int kBlocks>
+__global__ void __launch_bounds__(FOLD_THREADS, kBlocks)
+fold_kernel(const int* __restrict__ x, const uint32_t* __restrict__ keys,
+            const int* __restrict__ base, int* out, int rows, int B, int x_is_ntt,
+            int digits, FoldShape sh, FheConsts c, FoldTables tb) {
+  extern __shared__ uint32_t smem[];
+  const int t = threadIdx.x;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int pi = rank % FHE_P, grp = rank / FHE_P;
+  const int c2_per = sh.C2 / (sh.cs / FHE_P);
+  const int T = sh.T, Lk = sh.Lk;
+  uint32_t* spec = smem;                    // [T][16][256], thread-private words
+  uint32_t* R = smem + T * FOLD_N;          // [Lk][n] residues / exchange buffers
+  const uint32_t p = prime(c, pi);
+  const long long row_polys = (long long)sh.C2 * sh.Lout;
+  bool pending = false;   // arrived at "residues read", not yet waited
+  for (long long r = blockIdx.x / sh.cs; r < rows; r += gridDim.x / sh.cs) {
+    for (int d = 0; d < digits; ++d) {
+      // the cluster is done with R, and (d > 0) with writing this row's out
+      if (pending) {
+        cluster_wait();
+        pending = false;
+      }
+      if (d == 0 && x_is_ntt) {
+        const int* xs = x + ((long long)pi * B + r % B) * T * FOLD_N;
+        const uint32_t lift = ((0x80000000u + p - 1) / p) * p;
+        for (int tt = 0; tt < T; ++tt) {
+          const int4* q4 = reinterpret_cast<const int4*>(xs + tt * FOLD_N + (t << 4));
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int4 w = __ldg(q4 + k);
+            const int e[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)   // any representative, made < 2^32
+              spec[(tt * 16 + 4 * k + j) * FOLD_THREADS + t] =
+                  e[j] < 0 ? (uint32_t)e[j] + lift : (uint32_t)e[j];
+          }
+        }
+      } else {
+        const int* xr = d > 0 ? out + r * row_polys * FOLD_N : x + r * T * FOLD_N;
+        uint2 own0[4];   // j = t at stages 0-3
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          own0[s] = ldg_pair(tb.fwd + pi * FOLD_N + 4096 - (4096 >> s) + t);
+        const uint2 psi_t = ldg_pair(tb.psi_lo + pi * FOLD_THREADS + t);
+        for (int tt = 0; tt < T; ++tt)
+          forward<kBlocks>(xr + tt * FOLD_N, spec + tt * 16 * FOLD_THREADS, R,
+                           Lk > 1 ? R + FOLD_N : R, own0, psi_t, p, tb, pi);
+        __syncthreads();   // the last exchange's reads are done: R is free
+      }
+
+      uint2 own2[4];   // j = t at stages 8-11
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        own2[s] = ldg_pair(tb.inv + pi * FOLD_N + (256 << s) - 1 + t);
+      const uint2 ipsi_t = ldg_pair(tb.ipsi_lo + pi * FOLD_THREADS + t);
+      const uint32_t* kp =
+          keys + (((r / B) * FHE_P + pi) * digits + d) * T * (long long)sh.M * FOLD_N;
+      for (int c2 = grp * c2_per; c2 < (grp + 1) * c2_per; ++c2) {
+        for (int lk = 0; lk < Lk; ++lk) {
+          uint32_t v[16];
+          products(v, spec, kp + (long long)(c2 * Lk + lk) * FOLD_N, T,
+                   (long long)sh.M * FOLD_N, p,
+                   pi == 0 ? c.mu64[0] : pi == 1 ? c.mu64[1] : c.mu64[2]);
+          if (pending) {   // the previous component's residues are read
+            cluster_wait();
+            pending = false;
+          }
+          uint32_t* y = R + lk * FOLD_N;
+          inverse(v, lk + 1 < Lk ? y + FOLD_N : y, y, own2, ipsi_t, p, tb, pi);
+        }
+        cluster_arrive();   // every block's residues of component c2 are in
+        cluster_wait();
+        garner_fold(R, grp, pi, c2, out + r * row_polys * FOLD_N,
+                    base ? base + r * row_polys * FOLD_N : nullptr, sh, c, tb);
+        cluster_arrive();   // done reading the cluster's residues
+        pending = true;
+      }
+    }
+  }
+  if (pending) cluster_wait();   // no block leaves while another reads its R
+}
+
+static inline size_t fold_smem(const FoldShape& sh) {
+  return (size_t)(sh.T + sh.Lk) * FOLD_N * sizeof(uint32_t);
+}
+
+template <int kBlocks>
+static int fold_launch_as(const void* x, const void* keys, const void* base, void* out,
+                          int rows, int B, int clusters, int x_is_ntt, int digits,
+                          const FoldShape& sh, const FheConsts& c, const FoldTables& tb,
+                          void* stream) {
+  const size_t smem = fold_smem(sh);
+  cudaError_t err = cudaFuncSetAttribute(
+      fold_kernel<kBlocks>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)clusters * sh.cs);
+  cfg.blockDim = dim3(FOLD_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = sh.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fold_kernel<kBlocks>, (const int*)x,
+                           (const uint32_t*)keys, (const int*)base, (int*)out, rows, B,
+                           x_is_ntt, digits, sh, c, tb);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// blocks: 2 or 1, the instantiation (registers a thread) the launch takes.
 extern "C" int fhe_fold(const void* x, const void* keys, const void* base,
-                        void* out, void* scratch, int rows, int B, int groups,
-                        int x_is_ntt, int digits, FoldShape sh, FheConsts c,
-                        FheTables tb, void* stream) {
-  return fold_launch(fold_kernel, groups, sh, c.log_n, stream, (const int*)x,
-                     (const uint32_t*)keys, (const int*)base, (int*)out,
-                     (uint32_t*)scratch, rows, B, x_is_ntt, digits, sh, c, tb);
+                        void* out, int rows, int B, int clusters, int x_is_ntt,
+                        int digits, int blocks, FoldShape sh, FheConsts c,
+                        FoldTables tb, void* stream) {
+  return blocks == 2 ? fold_launch_as<2>(x, keys, base, out, rows, B, clusters, x_is_ntt,
+                                         digits, sh, c, tb, stream)
+                     : fold_launch_as<1>(x, keys, base, out, rows, B, clusters, x_is_ntt,
+                                         digits, sh, c, tb, stream);
 }

@@ -63,6 +63,15 @@ def _primitive_root(p: int) -> int:
     raise ValueError(f"no primitive root for {p}")
 
 
+def _shoup_pairs(ws, p: int) -> list[int]:
+    """[w0, w0', w1, w1', ...], w' = floor(w * 2^32 / p): x * w mod p is then
+    x * w - floor(x * w' / 2^32) * p, in [0, 2p) for any x < 2^32."""
+    out = []
+    for w in ws:
+        out += [int(w), (int(w) << 32) // p]
+    return out
+
+
 def _powers(base: int, count: int, p: int, scale: int = 1) -> np.ndarray:
     out = np.empty(count, dtype=np.int64)
     v = scale % p
@@ -135,6 +144,7 @@ class NTTContext:
         self.fwd_tw = torch.from_numpy(fwd_tw)
         self.inv_tw = torch.from_numpy(inv_tw)
         self._device_tables = {}
+        self._shoup = {}
 
     def _fwd_halves(self):
         return [self.n >> (s + 1) for s in range(self.log_n)]
@@ -153,6 +163,57 @@ class NTTContext:
 
     def consts(self, ndim: int, device="cpu"):
         return prime_consts(self.primes, ndim, device)
+
+    # the fold kernel's tables (csrc/fold.cu FoldTables), in this order;
+    # pairs per prime
+    SHOUP_TABLES = (("fwd", 4096), ("inv", 4096), ("psi_lo", 256),
+                    ("psi_hi", 16), ("ipsi_lo", 256), ("ipsi_hi", 16))
+
+    def shoup_tables(self, device):
+        """The fold kernel's constants as Shoup pairs (w, floor(w * 2^32 /
+        p)), w canonical, wired for n = 4096 and three primes.  Returns
+        (int32[words] on `device`, the uint32 bit patterns; {name: word
+        offset}).  Per prime, back to back: fwd and inv the stage tables
+        above, psi_lo[j] = psi^j, psi_hi[r] = psi^(256 r), ipsi_lo[j] =
+        psi^-j / n, ipsi_hi[r] = psi^-(256 r) (so psi^i, i = j + 256 r, is
+        psi_lo[j] * psi_hi[r]); then "garner", three pairs: p1^-1 mod p2,
+        p1 mod p3, (p1 p2)^-1 mod p3, each against its own prime."""
+        from .crt import garner_consts
+
+        key = torch.device(device)
+        if key not in self._shoup:
+            if self.n != 4096 or len(self.primes) != 3:
+                raise ValueError("the fold's tables are wired for n = 4096 and 3 primes")
+            rows, offsets, at = {}, {}, 0
+            for pi, p in enumerate(self.primes):
+                psi = int(self.psi[pi, 1])
+                ipsi = pow(psi, p - 2, p)
+                inv_n = int(self.inv_psi[pi, 0])
+                rows.setdefault("fwd", []).append(self.fwd_tw[pi].tolist())
+                rows.setdefault("inv", []).append(self.inv_tw[pi].tolist())
+                rows.setdefault("psi_lo", []).append(
+                    [pow(psi, j, p) for j in range(256)])
+                rows.setdefault("psi_hi", []).append(
+                    [pow(psi, 256 * r, p) for r in range(16)])
+                rows.setdefault("ipsi_lo", []).append(
+                    [pow(ipsi, j, p) * inv_n % p for j in range(256)])
+                rows.setdefault("ipsi_hi", []).append(
+                    [pow(ipsi, 256 * r, p) for r in range(16)])
+            words = []
+            for name, size in self.SHOUP_TABLES:
+                offsets[name] = at
+                for pi, p in enumerate(self.primes):
+                    words += _shoup_pairs(rows[name][pi], p)
+                at += 2 * size * len(self.primes)
+            g = garner_consts(self.primes)
+            p1, p2, p3 = self.primes
+            offsets["garner"] = at
+            words += (_shoup_pairs([g["c12"]], p2) + _shoup_pairs([g["p1_mod_p3"]], p3)
+                      + _shoup_pairs([g["c123"]], p3))
+            w = torch.tensor(words, dtype=I64)
+            self._shoup[key] = (torch.where(w >= 1 << 31, w - (1 << 32), w)
+                                .to(device=device, dtype=I32), offsets)
+        return self._shoup[key]
 
 
 @lru_cache(maxsize=8)

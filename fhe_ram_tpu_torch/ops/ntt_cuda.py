@@ -20,17 +20,18 @@ Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Twelve kernels (csrc/):
 and the two collectives of the row-sharded pack, whose wrappers live in
 parallel/collective.py (collective.cu): ring_all_gather, exchange.
 
-Transform bodies: ntt.cu, fold.cu and external.cu are built twice, once
-with the radix-2 body and once with the two-pass 64 x 64 body
-(-DFHE_NTT_TWO_PASS, csrc/fhe_core.cuh); their wrappers launch the variant
-of the context's body (ops/ntt.py) and count it under their own name, with
-"_two_pass" appended for the second body.  The other kernels have the
-radix-2 body only: a two-pass context routes around them
-(ops.ntt.fused_path_active).  Both bodies give the same
-integers.  Helpers that build the trace step, the split level and the
-pack merge from one fold (trace_step, split_level, pack_merge_level) serve
-the composed routes with the fold kernel and the plain versions with its
-plain version.
+Transform bodies: ntt.cu and external.cu are built twice, once with the
+radix-2 body and once with the two-pass 64 x 64 body (-DFHE_NTT_TWO_PASS,
+csrc/fhe_core.cuh); their wrappers launch the variant of the context's body
+(ops/ntt.py) and count it under their own name, with "_two_pass" appended
+for the second body.  fold.cu (kernels 2 and 5) is built once: its
+transform is its own (three radix-16 passes in registers), it serves both
+bodies' contexts with the same integers and counts under its own name.
+The other kernels have the radix-2 body only: a two-pass context routes
+around them (ops.ntt.fused_path_active).  Helpers that build the trace
+step, the split level and the pack merge from one fold (trace_step,
+split_level, pack_merge_level) serve the composed routes with the fold
+kernel and the plain versions with its plain version.
 
 Build: one `nvcc -shared` per source and body for sm_90a, all started
 together, into `<package>/build/` at first use; plain C entry points bound
@@ -71,8 +72,8 @@ _BUILD = _PKG / "build"
 SOURCES = ("ntt", "fold", "external", "trace", "pack_merge", "split",
            "split_tree", "pack_tree", "blind_rotate", "dp_chain", "bitwise",
            "collective")
-# the sources built once a transform body; the others take radix-2 only
-BODY_SOURCES = ("ntt", "fold", "external")
+# the sources built once a transform body; the others are built once
+BODY_SOURCES = ("ntt", "external")
 _BODY_FLAGS = {"radix2": [], "two_pass": ["-DFHE_NTT_TWO_PASS"]}
 
 _MAX_L = 8        # FHE_MAX_L of csrc/fhe_core.cuh
@@ -80,24 +81,30 @@ _MAX_STEPS = 16   # FHE_MAX_STEPS: steps of a trace launch, levels of a tree lau
 _MAX_OPS = 16     # FHE_MAX_OPS of csrc/dp_chain.cu, bitwise.cu: ops of a VM group
 MAX_SHARDS = 16   # FHE_MAX_SHARDS of csrc/collective.cu: shards of a collective
 _MAX_SMEM = 232448  # bytes of shared memory one block can use on sm_90
-# Rows up to which a launch gives each row a cluster of 6 resp. 3 blocks
+_SM_SMEM = 233472   # bytes of shared memory of an SM, 1 KB a block reserved
+# Rows up to which a launch of the fold_row kernels (trace, merges,
+# splits, trees, VM chains) gives each row a cluster of 6 resp. 3 blocks
 # (timed on an H100 with tools/time_fold_chunks.py: at T = 2, M = 6 a
 # cluster of 6 wins up to 32 rows, of 3 up to 128, one block a row beyond).
 _ROWS_CLUSTER_6 = 32
 _ROWS_CLUSTER_3 = 128
-# Most blocks (or clusters) a fold launch starts; with more rows than this
-# each walks over several.  It bounds the residue scratch of a batched
-# launch: 1024 * 3 * M polys, 288 MB at M = 6, whatever the batch.
+# The fold (csrc/fold.cu) gives every row a cluster of 3 blocks, one a
+# prime, or of 6 (the output components shared by two groups of 3) up to
+# this many rows; tools/time_fold_predecessor.py times both.
+_FOLD_ROWS_6 = 32
+# Most clusters a fold launch starts; with more rows than this each walks
+# over several (the 2^24 level 0: 16,384 rows).
 _MAX_ROW_GROUPS = 1024
+_FOLD_MAX_LK = 8  # FOLD_MAX_LK of csrc/fold.cu: key limbs a fold takes
 
 # Kernel launches since the last reset_launches(): one count per wrapper,
 # incremented where the wrapper launches its kernel and nowhere else.
 # The wrappers of both bodies count the two-pass variant apart.
-_BODY_WRAPPERS = ("ntt_fwd", "ntt_inv", "fused_external_fold",
-                  "fused_external_fold_batched", "fused_external")
+_BODY_WRAPPERS = ("ntt_fwd", "ntt_inv", "fused_external")
 LAUNCHES = dict.fromkeys(
     _BODY_WRAPPERS + tuple(f"{w}_two_pass" for w in _BODY_WRAPPERS)
-    + ("fused_trace", "fused_pack_merge", "fused_split", "fused_split_tree",
+    + ("fused_external_fold", "fused_external_fold_batched",
+       "fused_trace", "fused_pack_merge", "fused_split", "fused_split_tree",
        "fused_pack_tree", "fused_blind_rotate", "fused_dp_chain",
        "fused_bitwise", "ring_all_gather", "exchange"), 0)
 
@@ -143,6 +150,12 @@ class _FoldShape(ctypes.Structure):
                 ("Lout", ctypes.c_int), ("C2", ctypes.c_int),
                 ("sign", ctypes.c_int), ("mc", ctypes.c_int),
                 ("cs", ctypes.c_int)]
+
+
+class _FoldTables(ctypes.Structure):
+    """csrc/fold.cu's FoldTables: pointers into NTTContext.shoup_tables."""
+    _fields_ = [(name, ctypes.c_void_p) for name, _ in NTTContext.SHOUP_TABLES] + [
+        ("garner", ctypes.c_void_p)]
 
 
 class _TraceSteps(ctypes.Structure):
@@ -225,8 +238,8 @@ def build_kernels(verbose: bool = False):
     sigs = {
         ("ntt", "fhe_ntt_fwd"): [vp, vp, ci, _Consts, _Tables, vp],
         ("ntt", "fhe_ntt_inv"): [vp, vp, ci, _Consts, _Tables, vp],
-        ("fold", "fhe_fold"): [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                               _FoldShape, _Consts, _Tables, vp],
+        ("fold", "fhe_fold"): [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, _FoldShape,
+                               _Consts, _FoldTables, vp],
         ("external", "fhe_external"): [vp, vp, vp, ci, _FoldShape, _Consts,
                                        _Tables, vp],
         ("trace", "fhe_trace"): [vp, vp, vp, vp, vp, ci, _TraceSteps, ci,
@@ -498,33 +511,82 @@ def _fold_args(ctx: NTTContext, x, keys_ntt, out_limbs: int, c2: int, base,
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
     _fold_limits(T, M, c2, out_limbs, n)
+    # csrc/fold.cu keeps T spectra and the Lk residue polys of a component
+    # in one block's shared memory
+    if M // c2 > _FOLD_MAX_LK or (T + M // c2) * 4 * n > _MAX_SMEM:
+        raise ValueError(f"T = {T} digit polys and {M // c2} key limbs do not fit "
+                         "the fold's shared memory")
     return A, B
+
+
+def _fold_cs(rows: int, c2: int) -> int:
+    """Blocks of a fold cluster (csrc/fold.cu): 3, one a prime, or 6 (two
+    groups of 3 that share the output components) while the rows are few
+    and the components split evenly."""
+    return 6 if rows <= _FOLD_ROWS_6 and c2 % 2 == 0 else 3
+
+
+_sm_count = {}
+
+
+def _fold_blocks(blocks_total: int, T: int, Lk: int, device) -> int:
+    """The instantiation of csrc/fold.cu a launch of `blocks_total` blocks
+    takes: 2 (128 registers a thread, two blocks an SM) when the shape's
+    shared memory lets two blocks share an SM and there are more blocks than
+    SMs; else 1 (up to 255 registers: a launch that holds one block an SM
+    anyway, or a short one, runs the single block faster)."""
+    index = torch.device(device).index or 0
+    if index not in _sm_count:
+        _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    two_fit = 2 * ((T + Lk) * 4 * 4096 + 1024) <= _SM_SMEM
+    return 2 if two_fit and blocks_total > _sm_count[index] else 1
+
+
+def _fold_tables(ctx: NTTContext, device) -> _FoldTables:
+    tab, offsets = ctx.shoup_tables(device)
+    base = tab.data_ptr()
+    return _FoldTables(*(base + 4 * offsets[name] for name, _ in _FoldTables._fields_))
+
+
+def _aligned16(t):
+    """t, or a copy of it whose data starts on 16 bytes (the fold loads
+    keys and spectra 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _fold_shape_arg(rows: int, T: int, M: int, c2: int, out_limbs: int,
+                    sign: int) -> _FoldShape:
+    """csrc/fold.cu's shape argument (`mc` is not read there)."""
+    return _FoldShape(T, M, M // c2, out_limbs, c2, -1 if sign < 0 else 1, 0,
+                      _fold_cs(rows, c2))
 
 
 def _launch_fold(wrapper: str, ctx: NTTContext, x, keys_ntt, out_limbs: int,
                  c2: int, base, sign: int, x_is_ntt: bool, A: int, B: int):
     """One launch of csrc/fold.cu over A * B rows for the wrapper named,
     counted as its launch; returns int32[A * B, c2, out_limbs, N]."""
-    P, digits, T, M, n = keys_ntt.shape[-5:]
+    _, digits, T, M, n = keys_ntt.shape[-5:]
     rows = A * B
     x = _require(x, "x")
-    keys_ntt = _require(keys_ntt, "keys_ntt")
+    keys_ntt = _aligned16(_require(keys_ntt, "keys_ntt"))
+    if x_is_ntt:
+        x = _aligned16(x)
     if base is not None:
         base = _require(base, "base")
     out = torch.empty((rows, c2, out_limbs, n), dtype=I32, device=x.device)
     if rows == 0:
         return out
-    groups = min(rows, _MAX_ROW_GROUPS)
-    scratch = torch.empty((groups, P, M, n), dtype=I32, device=x.device)
-    sh = _fold_shape(rows, T, M, c2, out_limbs, sign, n)
+    sh = _fold_shape_arg(rows, T, M, c2, out_limbs, sign)
+    clusters = min(rows, _MAX_ROW_GROUPS)
     with torch.cuda.device(x.device):
-        err = _lib("fold", ctx.body).fhe_fold(
+        err = _lib("fold").fhe_fold(
             x.data_ptr(), keys_ntt.data_ptr(),
-            None if base is None else base.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), rows, B, groups, int(x_is_ntt), digits, sh,
-            _consts(ctx), _tables(ctx, x.device), _stream())
+            None if base is None else base.data_ptr(), out.data_ptr(), rows, B,
+            clusters, int(x_is_ntt), digits,
+            _fold_blocks(clusters * sh.cs, T, M // c2, x.device), sh, _consts(ctx),
+            _fold_tables(ctx, x.device), _stream())
     _check(err, wrapper)
-    LAUNCHES[_counter(wrapper, ctx)] += 1
+    LAUNCHES[wrapper] += 1
     return out
 
 
@@ -582,10 +644,8 @@ def fused_external_fold_batched(ctx: NTTContext, x, keys_ntt, out_limbs: int,
     the carry.
     base: optional int32[A, B, c2, out_limbs, N]:
       out = normalize(base + sign * fold).
-    Returns int32[A, B, c2, out_limbs, N] normalized.
-
-    The launch parks its residues in a scratch of min(A*B, 1024) rows, so
-    memory grows with the batch only through the output."""
+    Returns int32[A, B, c2, out_limbs, N] normalized; the residues stay on
+    chip, so memory grows with the batch only through the output."""
     A, B = _fold_args(ctx, x, keys_ntt, out_limbs, c2, base, x_is_ntt, True)
     if not _use_kernel(ctx, x):
         return fused_external_fold_batched_plain(ctx, x, keys_ntt, out_limbs,

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Time the fold-family kernels' two launch choices on the GPU.
+"""Time the two launch choices of the kernels built on fold_row
+(csrc/fhe_core.cuh) on the GPU.
 
     python3 fhe_ram_tpu_torch/tools/time_fold_chunks.py
 
 For each (mc, cs) -- output polys per inverse-transform pass, blocks per
 row (1, or a thread block cluster of 3 or 6) -- it times, at the shapes of
-one read at PARAMS_2_18_TURBO_READOPT: the fold at B = 256 and B = 4, the
-12-step trace at B = 4, and a merge level at nb = 128 ... 4.  Every
-setting's outputs are held bit-equal to the first setting's.  Times are
-medians of 9 launches by CUDA events, the L2 cache overwritten before each.
-One JSON line per setting; the first and last settings repeat so that drift
-within the run shows.  The thresholds `_ROWS_CLUSTER_6/_3` and `mc = 3` in
-ops/ntt_cuda.py were read off this script's output.
+one read at PARAMS_2_18_TURBO_READOPT: the 12-step trace at B = 4 and a
+merge level at nb = 128 ... 4.  Every setting's outputs are held bit-equal
+to the first setting's.  Times are medians of 9 launches by CUDA events,
+the L2 cache overwritten before each.  One JSON line per setting; the first
+and last settings repeat so that drift within the run shows.  The
+thresholds `_ROWS_CLUSTER_6/_3` and `mc = 3` in ops/ntt_cuda.py were read
+off this script's output (the fold, csrc/fold.cu, has its own launch
+shape: tools/time_fold_predecessor.py times it).
 """
 
 import json
@@ -63,8 +65,6 @@ def main():
         return statistics.median(ts)
 
     gals = PAR.trace_gal_els
-    keys_ep = ntt_cuda.ntt_fwd_cuda(ctx, limbs((1, 4, 6, n)))
-    x256, x4 = limbs((256, 4, n)), limbs((4, 4, n))
     keys_tr = ntt_cuda.ntt_fwd_cuda(ctx, limbs((12, 2, 6, n))).permute(
         1, 0, 2, 3, 4).contiguous()
     ct4 = limbs((4, 2, 3, n))
@@ -72,11 +72,7 @@ def main():
     pairs = {nb: (limbs((nb, 2, 3, n), 17), limbs((nb, 2, 3, n), 17))
              for nb in (128, 64, 32, 16, 8, 4)}
 
-    calls = {
-        "fold256": lambda: ntt_cuda.fused_external_fold(ctx, x256, keys_ep, 3, 2),
-        "fold4": lambda: ntt_cuda.fused_external_fold(ctx, x4, keys_ep, 3, 2),
-        "trace": lambda: ntt_cuda.fused_trace(ctx, ct4, keys_tr, gals),
-    }
+    calls = {"trace": lambda: ntt_cuda.fused_trace(ctx, ct4, keys_tr, gals)}
     for nb, (A, B) in pairs.items():
         calls[f"merge{nb}"] = (
             lambda A=A, B=B: ntt_cuda.fused_pack_merge(ctx, A, B, 32, 129, key_pm))

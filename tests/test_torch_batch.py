@@ -39,13 +39,15 @@ from fhe_ram_tpu_torch.ram import address as taddress
 # these sizes gain nothing from more
 torch.set_num_threads(1)
 
-# The JAX reference is compiled without XLA's optimisation passes and in one
-# piece: the integers are the same, these sizes run in no time either way,
-# and the compile takes a third less CPU time (the suite's workers share
-# their cores, so CPU time is what the whole run pays for).
+# The JAX reference is compiled without XLA's optimisation passes, in one
+# piece and with XLA:CPU's loop emitters (its fusion emitters compile on
+# several threads): the integers are the same, these sizes run in no time
+# either way, and the compile takes less CPU time (the suite's workers
+# share their cores, so CPU time is what the whole run pays for).
 _jit = functools.partial(jax.jit, compiler_options={
     "xla_backend_optimization_level": 0,
-    "xla_cpu_parallel_codegen_split_count": 1})
+    "xla_cpu_parallel_codegen_split_count": 1,
+    "xla_cpu_use_fusion_emitters": False})
 
 TRUNC = dict(read_ks_digits=2, read_ks_limbs=3,
              read_ep_digits=2, read_ep_limbs=3)

@@ -11,7 +11,11 @@ never compared, coefficient-domain outputs are, bit for bit
 (np.array_equal, tolerance 0 -- all of it is integer arithmetic)."""
 
 import functools
+import os
+import subprocess
+import sys
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -42,13 +46,15 @@ from fhe_ram_tpu_torch.ram import address as taddress
 # these sizes gain nothing from more
 torch.set_num_threads(1)
 
-# The JAX reference is compiled without XLA's optimisation passes and in one
-# piece: the integers are the same, these sizes run in no time either way,
-# and the compile takes a third less CPU time (the suite's workers share
-# their cores, so CPU time is what the whole run pays for).
+# The JAX reference is compiled without XLA's optimisation passes, in one
+# piece and with XLA:CPU's loop emitters (its fusion emitters compile on
+# several threads): the integers are the same, these sizes run in no time
+# either way, and the compile takes less CPU time (the suite's workers
+# share their cores, so CPU time is what the whole run pays for).
 _jit = functools.partial(jax.jit, compiler_options={
     "xla_backend_optimization_level": 0,
-    "xla_cpu_parallel_codegen_split_count": 1})
+    "xla_cpu_parallel_codegen_split_count": 1,
+    "xla_cpu_use_fusion_emitters": False})
 
 
 TRUNC = dict(read_ks_digits=2, read_ks_limbs=3,
@@ -418,25 +424,19 @@ def run(a, b, x, keys):
                                             interpret=True))
 
 jit = functools.partial(jax.jit, compiler_options={
-    "xla_backend_optimization_level": 0, "xla_cpu_parallel_codegen_split_count": 1})
+    "xla_backend_optimization_level": 0, "xla_cpu_parallel_codegen_split_count": 1,
+    "xla_cpu_use_fusion_emitters": False})
 out = jit(run)(**{k: jnp.asarray(v) for k, v in inp.items()})
 np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in out.items()})
 """
 
 
-def test_plain_versions_match_the_jax_mxu0_bodies(tmp_path):
-    """Kernels 1, 12 and 2 of the JAX package with their FHERAM_MXU=0 bodies
-    (the two-pass 64 x 64 form the port's two-pass body stands for) against
-    the port's plain versions under a two-pass context, bit for bit after
-    to_canonical: the round trip and the convolution residues of kernel 1,
-    kernel 12's residues, kernel 2's normalized limbs."""
-    import os
-    import subprocess
-    import sys
-    from pathlib import Path
-
-    from fhe_ram_tpu_torch.ops.ntt import ntt_fwd_plain, ntt_inv_plain
-
+@pytest.fixture(scope="module", autouse=True)
+def mxu0_refs(tmp_path_factory):
+    """The inputs of test_plain_versions_match_the_jax_mxu0_bodies and the
+    process that computes their JAX references (_MXU0_SCRIPT), started with
+    the module's first test so that it runs beside the others; the test
+    waits for it."""
     rnd = np.random.default_rng(6)
     n = 4096
     inp = dict(a=rnd.integers(-(1 << 20), 1 << 20, size=(2, n)),
@@ -444,15 +444,32 @@ def test_plain_versions_match_the_jax_mxu0_bodies(tmp_path):
                x=rnd.integers(-(1 << 16), 1 << 16, size=(2, 3, n)),
                keys=rnd.integers(-(1 << 16), 1 << 16, size=(3, 2, n)))
     inp = {k: v.astype(np.int32) for k, v in inp.items()}
-    np.savez(tmp_path / "in.npz", primes=np.asarray(PRIMES), **inp)
+    tmp = tmp_path_factory.mktemp("mxu0")
+    np.savez(tmp / "in.npz", primes=np.asarray(PRIMES), **inp)
     root = Path(__file__).resolve().parent.parent
     env = dict(os.environ, FHERAM_MXU="0", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(filter(None, [str(root),
                                                         os.environ.get("PYTHONPATH")])))
-    subprocess.run([sys.executable, "-c", _MXU0_SCRIPT, str(tmp_path / "in.npz"),
-                    str(tmp_path / "out.npz")], check=True, cwd=root, env=env,
-                   timeout=300)
-    want = np.load(tmp_path / "out.npz")
+    proc = subprocess.Popen([sys.executable, "-c", _MXU0_SCRIPT, str(tmp / "in.npz"),
+                             str(tmp / "out.npz")], cwd=root, env=env)
+    yield inp, proc, tmp / "out.npz"
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
+def test_plain_versions_match_the_jax_mxu0_bodies(mxu0_refs):
+    """Kernels 1, 12 and 2 of the JAX package with their FHERAM_MXU=0 bodies
+    (the two-pass 64 x 64 form the port's two-pass body stands for) against
+    the port's plain versions under a two-pass context, bit for bit after
+    to_canonical: the round trip and the convolution residues of kernel 1,
+    kernel 12's residues, kernel 2's normalized limbs."""
+    from fhe_ram_tpu_torch.ops.ntt import ntt_fwd_plain, ntt_inv_plain
+
+    inp, proc, out = mxu0_refs
+    n = 4096
+    assert proc.wait(timeout=300) == 0
+    want = np.load(out)
 
     tctx = tget_ctx(n, PRIMES, "two_pass")
     fa, fb = ntt_fwd_plain(tctx, _t(inp["a"])), ntt_fwd_plain(tctx, _t(inp["b"]))
@@ -466,3 +483,256 @@ def test_plain_versions_match_the_jax_mxu0_bodies(tmp_path):
                                           keys[:, None, :2, :2].contiguous(), 2, 2))
     for k, v in got.items():
         assert v.dtype == torch.int32 and np.array_equal(v.numpy(), want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# csrc/fold.cu (kernels 2 and 5): its index arithmetic and constants
+# ---------------------------------------------------------------------------
+# The fold kernel runs only on the card, so its data movement is emulated
+# here in int64 exactly as csrc/fold.cu writes it: which coefficient thread
+# t holds in register r in each layout, the swizzled exchange-buffer words,
+# the table word of every butterfly's twiddle, the Shoup products with
+# 32-bit wrap-around, the lazy ranges, the Garner step.  Names follow the
+# CUDA source.
+
+_FOLD_THREADS, _FOLD_N, _M32 = 256, 4096, (1 << 32) - 1
+
+
+def _lay_t(L, t):
+    return t if L == 0 else (t & 15) | ((t >> 4) << 8) if L == 1 else t << 4
+
+
+def _lay_r(L, r):
+    return r << 8 if L == 0 else r << 4 if L == 1 else r
+
+
+def _lay(L, t, r):
+    return _lay_t(L, t) | _lay_r(L, r)
+
+
+def _swz(i):
+    return i ^ ((i >> 5) & 15) ^ ((i >> 4) & 16)
+
+
+def _umulhi(x, y):
+    """__umulhi of uint32 tensors (int64, < 2^32), exact in int64."""
+    return (((x >> 16) * y) + (((x & 0xFFFF) * y) >> 16)) >> 16
+
+
+class _FoldEmu:
+    """csrc/fold.cu's per-block arithmetic for the three primes at once:
+    values int64[P, 256 threads, 16 registers], uint32 semantics."""
+
+    def __init__(self, ctx):
+        self.tab, self.off = ctx.shoup_tables("cpu")
+        self.tab = self.tab.to(torch.int64) & _M32
+        self.p = torch.tensor(ctx.primes, dtype=torch.int64).reshape(3, 1, 1)
+        self.t = torch.arange(_FOLD_THREADS).reshape(1, -1, 1)
+        self.r = torch.arange(16).reshape(1, 1, -1)
+
+    def pair(self, name, size, idx):
+        """Shoup pair (w, w') of table `name` at idx (int64[P or 1, ...])."""
+        pi = torch.arange(3).reshape((3,) + (1,) * (idx.dim() - 1))
+        word = self.off[name] + 2 * (pi * size + idx)
+        return self.tab[word], self.tab[word + 1]
+
+    def shoup(self, x, w):
+        assert bool((x >= 0).all() and (x <= _M32).all())
+        out = (x * w[0] - _umulhi(x, w[1]) * self.p) & _M32
+        assert bool((out < 2 * self.p).all()), "Shoup product outside [0, 2p)"
+        return out
+
+    def dif16(self, v, mul):
+        """fold.cu dif16: mul(x, s, rl) multiplies by the pair's twiddle."""
+        p2 = 2 * self.p[..., 0]
+        for s in range(4):
+            hb = 8 >> s
+            for r in (r for r in range(16) if not r & hb):
+                a, b = v[..., r].clone(), v[..., r + hb].clone()
+                assert bool((a < p2).all() and (b < p2).all()), "DIF input outside [0, 2p)"
+                s_ = (a + b) & _M32
+                v[..., r] = torch.minimum(s_, (s_ - p2) & _M32)
+                v[..., r + hb] = mul((a - b + p2) & _M32, s, r & (hb - 1))
+        return v
+
+    def dit16(self, v, mul):
+        p2 = 2 * self.p[..., 0]
+        for s in range(4):
+            hb = 1 << s
+            for r in (r for r in range(16) if not r & hb):
+                assert bool((v[..., r] < 2 * p2).all() and (v[..., r + hb] < 2 * p2).all())
+                a = torch.minimum(v[..., r], (v[..., r] - p2) & _M32)   # a copy
+                b = mul(v[..., r + hb].clone(), s, r & (hb - 1))
+                v[..., r] = (a + b) & _M32
+                v[..., r + hb] = (a - b + p2) & _M32
+        return v
+
+    def mul(self, x, pair):
+        """shoup() of a [P, 256] operand and a pair of [P or 1, 256 or 1]."""
+        return self.shoup(x[..., None], tuple(w[..., None] for w in pair))[..., 0]
+
+    def lazy(self, x, m):
+        out = torch.minimum(x, (x - m) & _M32)
+        assert bool((out < m).all())
+        return out
+
+    def exchange(self, v, la, lb):
+        buf = torch.full((3, _FOLD_N), -1, dtype=torch.int64)
+        buf[:, _swz(_lay(la, self.t, self.r)).reshape(-1)] = v.reshape(3, -1)
+        assert bool((buf >= 0).all()), "an exchange left a word unwritten"
+        return buf[:, _swz(_lay(lb, self.t, self.r)).reshape(-1)].reshape(v.shape), buf
+
+    def forward(self, x):
+        """fold.cu forward(): int32 digit poly x[N] -> spectrum in layout L2."""
+        t, r, p = self.t[..., 0], self.r[0, 0], self.p[..., 0]
+        lift = ((0x80000000 + p - 1) // p) * p
+        xv = x[_lay(0, self.t, self.r)].to(torch.int64).expand(3, -1, -1)
+        u = torch.where(xv < 0, (xv + (1 << 32) + lift[..., None]) & _M32, xv)
+        v = self.shoup(self.shoup(u, self.pair("psi_hi", 16, r.reshape(1, 1, -1))),
+                       self.pair("psi_lo", 256, self.t.expand(1, -1, 1)))
+        own0 = [self.pair("fwd", 4096, 4096 - (4096 >> s) + t) for s in range(4)]
+        const = lambda tab, at: self.pair(tab, 4096, torch.full((1, 1), at))  # noqa: E731
+
+        def pass0(x_, s, rl):
+            if rl:
+                x_ = self.mul(x_, const("fwd", 4096 - (4096 >> s) + (rl << 8)))
+            return self.mul(x_, own0[s])
+        v = self.dif16(v, pass0)
+        v, _ = self.exchange(v, 0, 1)
+        j0 = t & 15
+        v = self.dif16(v, lambda x_, s, rl: self.mul(
+            x_, self.pair("fwd", 4096, 4096 - (256 >> s) + (j0 | (rl << 4)))))
+        v, _ = self.exchange(v, 1, 2)
+        return self.dif16(v, lambda x_, s, rl: self.mul(
+            x_, const("fwd", 4096 - (16 >> s) + rl)) if rl else self.lazy(x_, 2 * p))
+
+    def inverse(self, v):
+        """fold.cu inverse(): layout L2 in [0, 4p) -> canonical residues in
+        natural order (read from the swizzled words, as the Garner does)."""
+        t, p = self.t[..., 0], self.p[..., 0]
+        const = lambda at: self.pair("inv", 4096, torch.full((1, 1), at))  # noqa: E731
+        v = self.dit16(v, lambda x_, s, rl: self.mul(x_, const((1 << s) - 1 + rl))
+                       if rl else self.lazy(x_, 2 * p))
+        v, _ = self.exchange(v, 2, 1)
+        j0 = t & 15
+        v = self.dit16(v, lambda x_, s, rl: self.mul(
+            x_, self.pair("inv", 4096, (16 << s) - 1 + (j0 | (rl << 4)))))
+        v, _ = self.exchange(v, 1, 0)
+        own2 = [self.pair("inv", 4096, (256 << s) - 1 + t) for s in range(4)]
+
+        def pass2(x_, s, rl):
+            if rl:
+                x_ = self.mul(x_, const((256 << s) - 1 + (rl << 8)))
+            return self.mul(x_, own2[s])
+        v = self.dit16(v, pass2)
+        u = self.shoup(self.shoup(v, self.pair("ipsi_hi", 16, self.r[0, 0].reshape(1, 1, -1))),
+                       self.pair("ipsi_lo", 256, self.t.expand(1, -1, 1)))
+        u = self.lazy(u, self.p)
+        y = torch.empty((3, _FOLD_N), dtype=torch.int64)
+        y[:, _swz(_lay(0, self.t, self.r)).reshape(-1)] = u.reshape(3, -1)
+        return y[:, _swz(torch.arange(_FOLD_N))]           # the Garner's reads
+
+
+def test_fold_kernel_index_arithmetic_matches_the_plain_transforms():
+    """csrc/fold.cu emulated at N = 4096 for the three DEFAULT_PRIMES: two
+    digit polys through the forward transform (int32 extremes included),
+    their spectra against ntt_fwd_plain; the key products and the inverse
+    against ntt_inv_plain; the Shoup Garner against the plain Garner digits;
+    every Shoup quotient of the host tables against Python integers; every
+    exchange and Garner read free of bank conflicts; all bit for bit."""
+    from fhe_ram_tpu_torch.ops.crt import garner_consts, garner_digits
+    from fhe_ram_tpu_torch.ops.ntt import ntt_fwd_plain, ntt_inv_plain
+    from fhe_ram_tpu_torch.params import DEFAULT_PRIMES
+
+    ctx = tget_ctx(_FOLD_N, DEFAULT_PRIMES)
+    emu = _FoldEmu(ctx)
+    primes = list(DEFAULT_PRIMES)
+
+    # the host tables: each pair (w, floor(w 2^32 / p)) with the w the kernel
+    # expects, checked with Python integers
+    tab = emu.tab.tolist()
+    for pi, p in enumerate(primes):
+        psi = int(ctx.psi[pi, 1])
+        ipsi, inv_n = pow(psi, p - 2, p), pow(_FOLD_N, p - 2, p)
+        want = {"fwd": ctx.fwd_tw[pi].tolist(), "inv": ctx.inv_tw[pi].tolist(),
+                "psi_lo": [pow(psi, j, p) for j in range(256)],
+                "psi_hi": [pow(psi, 256 * r, p) for r in range(16)],
+                "ipsi_lo": [pow(ipsi, j, p) * inv_n % p for j in range(256)],
+                "ipsi_hi": [pow(ipsi, 256 * r, p) for r in range(16)]}
+        for name, size in ctx.SHOUP_TABLES:
+            at = emu.off[name] + 2 * pi * size
+            got = tab[at: at + 2 * size]
+            assert got[0::2] == want[name], name
+            assert all(q == (w << 32) // p and w < p for w, q in zip(got[0::2], got[1::2])), name
+    g = garner_consts(tuple(primes))
+    got = tab[emu.off["garner"]: emu.off["garner"] + 6]
+    assert got[0::2] == [g["c12"], g["p1_mod_p3"], g["c123"]]
+    assert all(q == (w << 32) // p for w, q, p in zip(got[0::2], got[1::2], primes[1:] + primes[2:]))
+
+    # the layouts are permutations of the coefficients, and the kernel's word
+    # swz(lay_t) ^ swz(lay_r) is swz(lay); bank conflicts: in every layout
+    # each warp's 32 lanes hit 32 banks for each register; the Garner's
+    # warps read 32 aligned coefficients
+    t, r = emu.t, emu.r
+    for L in range(3):
+        assert torch.equal(_lay(L, t, r).reshape(-1).sort().values, torch.arange(_FOLD_N))
+        assert torch.equal(_swz(_lay_t(L, t)) ^ _swz(_lay_r(L, r)), _swz(_lay(L, t, r)))
+        banks = (_swz(_lay(L, t, r)) % 32).reshape(8, 32, 16).sort(dim=1).values
+        assert torch.equal(banks, torch.arange(32).reshape(1, 32, 1).expand(8, 32, 16)), L
+    i_per = (_FOLD_N // 3 + 31) & ~31
+    for pi in range(3):
+        i = torch.arange(pi * i_per, min(_FOLD_N, (pi + 1) * i_per))
+        assert i.numel() % 32 == 0
+        banks = (_swz(i) % 32).reshape(-1, 32).sort(dim=1).values
+        assert torch.equal(banks, torch.arange(32).expand_as(banks))
+
+    # forward: digits of two polys, int32 extremes included
+    rnd = np.random.default_rng(7)
+    T = 2
+    x = rnd.integers(-(1 << 31), 1 << 31, size=(T, _FOLD_N), dtype=np.int64)
+    x[0, :4] = [-(1 << 31), (1 << 31) - 1, 0, -1]
+    x[1] = rnd.integers(-(1 << 17), 1 << 17, size=_FOLD_N)
+    x = torch.from_numpy(x.astype(np.int32))
+    p3 = emu.p.reshape(3, 1)
+    pos2 = _lay(2, t, r).reshape(-1)
+    specs = []
+    for tt in range(T):
+        v = emu.forward(x[tt])
+        spec = torch.empty((3, _FOLD_N), dtype=torch.int64)
+        spec[:, pos2] = v.reshape(3, -1)
+        assert torch.equal(spec % p3, ntt_fwd_plain(ctx, x[tt]).to(torch.int64))
+        specs.append(v)
+
+    # the key products (64-bit sums, one Barrett step) and the inverse
+    keys = torch.from_numpy(np.stack([rnd.integers(0, q, size=(T, _FOLD_N)) for q in primes]))
+    acc = sum(specs[tt] * keys[:, tt, pos2].reshape(3, _FOLD_THREADS, 16) for tt in range(T))
+    mu = [(1 << 64) // q for q in primes]
+    q64 = torch.tensor([[(a * mu[pi]) >> 64 for a in acc[pi].reshape(-1).tolist()]
+                        for pi in range(3)]).reshape(acc.shape)
+    v = (acc - q64 * emu.p) & _M32
+    assert bool((v < 2 * emu.p).all())
+    res = emu.inverse(v)
+    prod = sum(ntt_fwd_plain(ctx, x[tt]).to(torch.int64) * keys[:, tt] for tt in range(T)) % p3
+    want = ntt_inv_plain(ctx, prod.to(torch.int32)).to(torch.int64)
+    assert torch.equal(torch.where(res > p3 // 2, res - p3, res), want)
+
+    # the Garner step with Shoup pairs against the plain Garner digits
+    p1, p2, p3_ = primes
+    gp = [tuple(got[2 * k: 2 * k + 2]) for k in range(3)]
+    m32 = _M32
+
+    def shoup1(x_, w, q):
+        return (x_ * w[0] - _umulhi(x_, w[1]) * q) & m32
+
+    def center(u, q):
+        return torch.where(u > q // 2, u - q, u)
+
+    r1, r2, r3 = res
+    v1 = center(r1, p1)
+    u2 = shoup1((r2 + 2 * p2 - v1) & m32, gp[0], p2)
+    v2 = center(torch.minimum(u2, (u2 - p2) & m32), p2)
+    tt_ = shoup1(v2 + 2 * p3_, gp[1], p3_)
+    u3 = shoup1((r3 + 4 * p3_ - v1 - tt_) & m32, gp[2], p3_)
+    v3 = center(torch.minimum(u3, (u3 - p3_) & m32), p3_)
+    w1, w2, w3 = garner_digits(primes, res)
+    assert torch.equal(v1, w1) and torch.equal(v2, w2) and torch.equal(v3, w3)

@@ -18,6 +18,7 @@ needs it.  The other geometries are compared in
 tests/test_torch_read_presets.py."""
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -48,13 +49,15 @@ from fhe_ram_tpu_torch.parallel import mesh as tmesh
 # these sizes gain nothing from more
 torch.set_num_threads(1)
 
-# The JAX reference is compiled without XLA's optimisation passes and in one
-# piece: the integers are the same, these sizes run in no time either way,
-# and the compile takes a third less CPU time (the suite's workers share
-# their cores, so CPU time is what the whole run pays for).
+# The JAX reference is compiled without XLA's optimisation passes, in one
+# piece and with XLA:CPU's loop emitters (its fusion emitters compile on
+# several threads): the integers are the same, these sizes run in no time
+# either way, and the compile takes less CPU time (the suite's workers
+# share their cores, so CPU time is what the whole run pays for).
 _jit = functools.partial(jax.jit, compiler_options={
     "xla_backend_optimization_level": 0,
-    "xla_cpu_parallel_codegen_split_count": 1})
+    "xla_cpu_parallel_codegen_split_count": 1,
+    "xla_cpu_use_fusion_emitters": False})
 
 
 def _addresses(par):
@@ -115,6 +118,48 @@ def client():
     w_ct = jram.encrypt_write_word(jpar, jctx, js_ntt,
                                    WRITE_WORD[:jpar.word_size], src)
     jkey_args = (ek.atk_glwe, ek.atk_ggsw, ek.tsk)
+    # the batched RMW's words and write words (the stream's next draws)
+    rmw_idxs = _addresses(jpar)[2:]
+    rmw_words = np.array([[0x5A, 0xC3, 0x17, 0x80], [0x01, 0xFE, 0x7F, 0x33]],
+                         dtype=np.uint8)[:, :jpar.word_size]
+    rmw_w_cts = [jram.encrypt_write_word(jpar, jctx, js_ntt, w, src)
+                 for w in rmw_words]
+
+    def coords_batch(idxs):
+        return tuple(jnp.stack([addrs[i].coordinates[j] for i in idxs], axis=0)
+                     for j in range(len(addrs[idxs[0]].coordinates)))
+
+    def read_batch_ref():
+        """read_batch_impl at the last three fixture addresses."""
+        return np.asarray(_jit(
+            lambda d, cb, atk: jram.read_batch_impl(
+                jpar, jctx, d,
+                tuple(jax.vmap(lambda g: jggsw.prepare(jctx, g))(x) for x in cb),
+                {g: jkeys.keyswitch.key_prepare(jctx, k) for g, k in atk.items()}))(
+                    ram_ct, coords_batch(_addresses(jpar)[1:]), ek.atk_glwe))
+
+    def rmw_batch_ref():
+        """rmw_batch_impl's read-outs and new RAM at the last two fixture
+        addresses."""
+        want_outs, want_data = _jit(
+            lambda d, cb, w, atk, atk_ggsw, tsk: jram.rmw_batch_impl(
+                jpar, jctx, d,
+                tuple(jax.vmap(lambda g: jggsw.prepare(jctx, g))(x) for x in cb),
+                cb, w, prepared(atk, atk_ggsw, tsk)))(
+                    ram_ct, coords_batch(rmw_idxs), jnp.stack(rmw_w_cts), *jkey_args)
+        return np.asarray(want_outs), np.asarray(want_data)
+
+    # The three JAX references compile side by side in threads (XLA
+    # compiles outside the interpreter lock) while the port's side is set
+    # up and the first tests run; each accessor waits for its own.
+    pool = ThreadPoolExecutor(3)
+    jresults = {
+        "refs": pool.submit(lambda: {idx: jread_rpw_write(ram_ct, addrs[idx], w_ct,
+                                                          *jkey_args)
+                                     for idx in _addresses(jpar)}),
+        "batch": pool.submit(read_batch_ref),
+        "rmw_batch": pool.submit(rmw_batch_ref)}
+    pool.shutdown(wait=False)
 
     tctx = tget_ctx(tpar.n, tpar.primes)
     carried = from_reference(sk=np.asarray(sk), keys=ek, ram=ram_ct, device="cpu")
@@ -123,61 +168,26 @@ def client():
         jpar=jpar, tpar=tpar, jctx=jctx, tctx=tctx, src=src, js_ntt=js_ntt,
         ek=ek, data=data, ram_ct=ram_ct, addrs=addrs, w_ct=w_ct,
         jkey_args=jkey_args, carried=carried, server=server,
-        s_ntt=tglwe.secret_prepare(tctx, carried.sk), jresults={})
-
-    def jax_refs(idx):
-        """(read_impl output, rpw_impl output, write_impl's new RAM for
-        w_ct after that rpw) at a fixture address, computed once."""
-        if idx not in c.jresults:
-            c.jresults[idx] = jread_rpw_write(ram_ct, addrs[idx], w_ct,
-                                              *jkey_args)
-        return c.jresults[idx]
+        s_ntt=tglwe.secret_prepare(tctx, carried.sk))
 
     def jax_read_rpw(idx):
-        return jax_refs(idx)[:2]
+        """(read_impl output, rpw_impl output) at a fixture address."""
+        return jresults["refs"].result()[idx][:2]
 
     def jax_write():
-        """(the JAX client's write word w_ct, write_impl's new RAM) when
-        WRITE_WORD is written at the third fixture address."""
-        return w_ct, np.asarray(jax_refs(_addresses(jpar)[2])[2])
+        """(the JAX client's write word w_ct, write_impl's new RAM for w_ct
+        after the rpw) when WRITE_WORD is written at the third fixture
+        address."""
+        return w_ct, np.asarray(jresults["refs"].result()[_addresses(jpar)[2]][2])
 
     def jax_read_batch():
-        """read_batch_impl at the last three fixture addresses, computed once."""
-        if "batch" not in c.jresults:
-            idxs = _addresses(jpar)[1:]
-            coords_b = tuple(
-                jnp.stack([addrs[i].coordinates[j] for i in idxs], axis=0)
-                for j in range(len(addrs[idxs[0]].coordinates)))
-            c.jresults["batch"] = np.asarray(_jit(
-                lambda d, cb, atk: jram.read_batch_impl(
-                    jpar, jctx, d,
-                    tuple(jax.vmap(lambda g: jggsw.prepare(jctx, g))(x) for x in cb),
-                    {g: jkeys.keyswitch.key_prepare(jctx, k) for g, k in atk.items()}))(
-                        ram_ct, coords_b, ek.atk_glwe))
-        return c.jresults["batch"]
+        """read_batch_impl at the last three fixture addresses."""
+        return jresults["batch"].result()
 
     def jax_rmw_batch():
         """(the words, the JAX client's write words, rmw_batch_impl's
-        read-outs and new RAM) at the last two fixture addresses, computed
-        once."""
-        if "rmw_batch" not in c.jresults:
-            idxs = _addresses(jpar)[2:]
-            words = np.array([[0x5A, 0xC3, 0x17, 0x80], [0x01, 0xFE, 0x7F, 0x33]],
-                             dtype=np.uint8)[:, :jpar.word_size]
-            w_cts = [jram.encrypt_write_word(jpar, jctx, js_ntt, w, src)
-                     for w in words]
-            coords_b = tuple(
-                jnp.stack([addrs[i].coordinates[j] for i in idxs], axis=0)
-                for j in range(len(addrs[idxs[0]].coordinates)))
-            want_outs, want_data = _jit(
-                lambda d, cb, w, atk, atk_ggsw, tsk: jram.rmw_batch_impl(
-                    jpar, jctx, d,
-                    tuple(jax.vmap(lambda g: jggsw.prepare(jctx, g))(x) for x in cb),
-                    cb, w, prepared(atk, atk_ggsw, tsk)))(
-                        ram_ct, coords_b, jnp.stack(w_cts), *jkey_args)
-            c.jresults["rmw_batch"] = (words, w_cts, np.asarray(want_outs),
-                                       np.asarray(want_data))
-        return c.jresults["rmw_batch"]
+        read-outs and new RAM) at the last two fixture addresses."""
+        return (rmw_words, rmw_w_cts) + jresults["rmw_batch"].result()
 
     def port_address(idx):
         """(Address, AddressPrepared) of the port for a fixture address."""

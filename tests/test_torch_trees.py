@@ -12,6 +12,7 @@ integer arithmetic)."""
 
 import functools
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import jax
@@ -35,13 +36,15 @@ from fhe_ram_tpu_torch.core import packer as tpacker
 # these sizes gain nothing from more
 torch.set_num_threads(1)
 
-# The JAX reference is compiled without XLA's optimisation passes and in one
-# piece: the integers are the same, these sizes run in no time either way,
-# and the compile takes a third less CPU time (the suite's workers share
-# their cores, so CPU time is what the whole run pays for).
+# The JAX reference is compiled without XLA's optimisation passes, in one
+# piece and with XLA:CPU's loop emitters (its fusion emitters compile on
+# several threads): the integers are the same, these sizes run in no time
+# either way, and the compile takes less CPU time (the suite's workers
+# share their cores, so CPU time is what the whole run pays for).
 _jit = functools.partial(jax.jit, compiler_options={
     "xla_backend_optimization_level": 0,
-    "xla_cpu_parallel_codegen_split_count": 1})
+    "xla_cpu_parallel_codegen_split_count": 1,
+    "xla_cpu_use_fusion_emitters": False})
 
 JCTX = jget_ctx(JWIDE.n, JWIDE.primes)
 TCTX = tget_ctx(TWIDE.n, TWIDE.primes)
@@ -80,7 +83,26 @@ def _split_levels(ct, gals, tk):
 
 
 @pytest.fixture(scope="module")
-def extraction():
+def jax_refs():
+    """The two fixtures below, made in two threads side by side: XLA
+    compiles one side's JAX function outside the interpreter lock while the
+    other thread traces."""
+    with ThreadPoolExecutor(2) as pool:
+        ex, pk = pool.submit(_extraction), pool.submit(_packing)
+        return {"extraction": ex.result(), "packing": pk.result()}
+
+
+@pytest.fixture(scope="module")
+def extraction(jax_refs):
+    return jax_refs["extraction"]
+
+
+@pytest.fixture(scope="module")
+def packing(jax_refs):
+    return jax_refs["packing"]
+
+
+def _extraction():
     """One ciphertext batch, its keys, and the JAX package's extractions of
     it: all 8 slots (three split levels, no tail: bounded support), two of
     its residue classes, and 3 of 4 slots with the tail.  One jitted
@@ -152,8 +174,7 @@ def test_extract_slots_dilate_matches_jax_and_the_strided_slice(
         residue=residue, tree=True))
 
 
-@pytest.fixture(scope="module")
-def packing():
+def _packing():
     """Eight leaves, their keys, and the JAX package's packs of them: pack,
     the dilated trees (r = 2) with their tail, and the prefix down to 2
     nodes with its tail.  One jitted function."""

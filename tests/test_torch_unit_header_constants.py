@@ -24,6 +24,7 @@ def test_python_limits_and_structs_match_the_cuda_header():
     assert defines["FHE_MAX_OPS"] == ntt_cuda._MAX_OPS
     assert defines["FHE_MAX_LEAVES"] == 8 * ntt_cuda._MAX_OPS
     assert defines["FHE_P"] == 3 and defines["FHE_THREADS"] == 512
+    assert int(re.search(r"#define FOLD_MAX_LK (\d+)", text).group(1)) == ntt_cuda._FOLD_MAX_LK
 
     def fields(struct):
         body = re.search(r"struct %s \{(.*?)\n\};" % struct, text, re.S).group(1)
@@ -36,7 +37,8 @@ def test_python_limits_and_structs_match_the_cuda_header():
                            ("FheTables", ntt_cuda._Tables),
                            ("RotSteps", ntt_cuda._RotSteps),
                            ("DpTables", ntt_cuda._DpTables),
-                           ("OpGroups", ntt_cuda._OpGroups)):
+                           ("OpGroups", ntt_cuda._OpGroups),
+                           ("FoldTables", ntt_cuda._FoldTables)):
         assert fields(struct) == [name for name, _ in mirror._fields_], struct
     steps = ntt_cuda._MAX_STEPS
     assert ctypes.sizeof(ntt_cuda._TraceSteps) == 4 * (1 + steps)

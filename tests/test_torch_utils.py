@@ -39,11 +39,14 @@ from fhe_ram_tpu_torch.utils import profiling as tprofiling
 
 torch.set_num_threads(1)
 
-# The JAX reference is compiled without XLA's optimisation passes and in one
-# piece: the integers are the same, and the compile takes less CPU time.
+# The JAX reference is compiled without XLA's optimisation passes, in one
+# piece and with XLA:CPU's loop emitters (its fusion emitters compile on
+# several threads): the integers are the same, and the compile takes less
+# CPU time.
 _jit = functools.partial(jax.jit, compiler_options={
     "xla_backend_optimization_level": 0,
-    "xla_cpu_parallel_codegen_split_count": 1})
+    "xla_cpu_parallel_codegen_split_count": 1,
+    "xla_cpu_use_fusion_emitters": False})
 
 PRESETS = sorted(name for name in dir(jparams) if name.startswith("PARAMS_"))
 
