@@ -22,7 +22,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  bodies, the two-pass variant also bit-equal to the radix-2
                  one; kernels 2 and 5 (one build for both bodies) with their
                  registers and blocks an SM, and timed at the 2^24 read's
-                 level 0; kernel 12 (on no path) also folded and held
+                 level 0, as kernel 4 (on the same body) is; kernel 12 (on no path) also folded and held
                  against kernel 2
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
@@ -509,7 +509,9 @@ def main():
         A, Bc = limbs((nb, C, L, n), bits=17), limbs((nb, C, L, n), bits=17)
         t_rot, g = 1 << l, (n >> l) + 1
         check("fused_pack_merge", f"A,B[{nb},{C},{L},4096] t={t_rot} g={g}",
-              lambda: ntt_cuda.fused_pack_merge(ctx, A, Bc, t_rot, g, key_pm))
+              lambda: ntt_cuda.fused_pack_merge(ctx, A, Bc, t_rot, g, key_pm),
+              work=(poly_b * (3 * nb * C * L + P * T_ks * M_ks),
+                    fold_ops(nb, T_ks, M_ks, n)))
 
     # -- the shapes the write cycle and the batched read add ----------------
     Lkf = PAR.limbs_evk_trace          # untruncated keyswitch: 4 key limbs
@@ -592,7 +594,9 @@ def main():
         A, Bc = limbs((nb, C, L, n), bits=17), limbs((nb, C, L, n), bits=17)
         t_rot, g = 1 << l, (n >> l) + 1
         check("fused_pack_merge", f"A,B[{nb},{C},{L},4096] t={t_rot} g={g} key[3,{T_kf},{M_kf},4096] (untruncated)",
-              lambda: ntt_cuda.fused_pack_merge(ctx, A, Bc, t_rot, g, key_kf))
+              lambda: ntt_cuda.fused_pack_merge(ctx, A, Bc, t_rot, g, key_kf),
+              work=(poly_b * (3 * nb * C * L + P * T_kf * M_kf),
+                    fold_ops(nb, T_kf, M_kf, n)))
 
     # -- the shapes a batch of NB_RMW addresses gives the same wrappers -------
     # kernel 5 with the full gadget and one key an address, as the batched
@@ -655,6 +659,20 @@ def main():
         "bound_by": big_bound[1],
         "held_by": "read_2_24 == sharded_read == sharded_vs_plain"}]}
     del xbig, fbig
+    # kernel 4 at the 2^24 read's first merge level (8192 row pairs, t =
+    # 2^11, g = 3, the read's key), timed only, held as the fold above is
+    bgen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    Abig, Bbig = (torch.randint(-(1 << 17), 1 << 17, (BR // 2, C, L, n), dtype=torch.int32,
+                                device=dev, generator=bgen) for _ in range(2))
+    mbig = (lambda: ntt_cuda.fused_pack_merge(ctx, Abig, Bbig, 1 << 11, (n >> 11) + 1, key_pm))
+    mbig_bound = bound(poly_b * (3 * (BR // 2) * C * L + P * T_ks * M_ks),
+                       fold_ops(BR // 2, T_ks, M_ks, n))
+    timed_only["fused_pack_merge"] = [{
+        "shape": f"A,B[{BR // 2},{C},{L},4096] t=2048 g={(n >> 11) + 1} (2^24 read level 0)",
+        "ms": time_ms(mbig, 5, 1, flush), "bound_ms": mbig_bound[0],
+        "bound_by": mbig_bound[1],
+        "held_by": "read_2_24 == sharded_read == sharded_vs_plain"}]
+    del Abig, Bbig, mbig
 
     # kernels 3 and 4 with the batch folded into the row axis: the trace of
     # NB_RMW x W roots and the first merge level of NB_RMW x W x 32 pairs,
@@ -2043,7 +2061,8 @@ def main():
             k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",
                                                 "library_ms", "bound_ms")}
                               for r in checks[k["name"]]]
-        if k["name"] in ("fused_external_fold", "fused_external_fold_batched"):
+        if k["name"] in ("fused_external_fold", "fused_external_fold_batched",
+                         "fused_pack_merge"):
             k["per_shape"] = [{f: r.get(f) for f in ("shape", "ms", "plain_ms", "bound_ms",
                                                      "bound_by")}
                               for r in checks[k["name"]] + timed_only.get(k["name"], [])]

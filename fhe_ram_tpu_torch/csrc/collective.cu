@@ -13,14 +13,14 @@
 // (one pack root, int32[4, 2, 3, 4096] = 384 KiB) that is microseconds, less
 // than one launch costs, so both are launch-bound and simple on purpose:
 // 16-byte loads and stores, a block-stride loop, no staging in shared memory.
-// Per-shard streams and overlapping the hops with the tail merges
+// Per-shard streams and overlapping the collective with the tail merges
 // (fhe_ram_tpu/parallel/collective.py:13-17) are later work.
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define FHE_MAX_SHARDS 16
 #define COLL_THREADS 256
+#define COLL_MAX_BLOCKS 1024   // most blocks a shard (a block-stride loop beyond)
 
 struct ShardPtrs {
   const int* in[FHE_MAX_SHARDS];  // the chunk each shard sends
@@ -29,8 +29,7 @@ struct ShardPtrs {
 
 // Copy `words` int32 (words % 4 == 0, both pointers 16-byte aligned: the
 // wrapper guarantees it) from src to dst, 16 bytes at a time, with block `b`
-// of `blocks`, reading through L2 (__ldcg): in the ring another block of the
-// same launch wrote src, and L1 is not coherent across SMs.
+// of `blocks`, reading through L2 (__ldcg).
 __device__ __forceinline__ void copy_words(const int* src, int* dst,
                                            long long words, int b, int blocks) {
   const long long step = (long long)blocks * blockDim.x;
@@ -41,33 +40,31 @@ __device__ __forceinline__ void copy_words(const int* src, int* dst,
     d[i] = __ldcg(s + i);
 }
 
-// ---- kernel 13: ring all-gather --------------------------------------------
+// ---- kernel 13: all-gather, one push launch ----------------------------------
 // Replaces fhe_ram_tpu/parallel/collective.py: ring_all_gather (_ag_kernel).
-// out_k[s] = in_s for every shard k and slot s, moved around the ring as the
-// TPU kernel moves it: at hop h shard k forwards slot (k - h) mod n, which it
-// received at hop h - 1 (its own chunk at hop 0), into the same slot of its
-// right neighbour's output.  Hop 0 also places the shard's chunk in its own
-// slot; both of its copies read the input.
-// Bound: bytes, (n + n^2) chunks (n read, n^2 written); the ring itself moves
-// 2n(n - 1) + n chunks (a hop reads what the one before wrote).
-// Order of the hops: ONE cooperative launch (every block resident) with a
-// grid-wide barrier (cooperative_groups grid sync, which fences memory)
-// between two hops, and data another block wrote read through L2.  The grid
-// is n groups of blocks, one group a shard; every block passes every barrier.
+// out_k[s] = in_s for every shard k and slot s.  The TPU kernel moves the
+// chunks around a ring of n - 1 hops because its links are a torus; the
+// order of the hops cannot be seen in the output.  Here each chunk is pushed
+// once to every shard: the grid is n groups of blocks, group s for source
+// slot s; each thread loads a 16-byte unit of in_s once (ld.global.nc:
+// nothing in the launch writes an input) and stores it into slot s of every
+// shard's output.  No block waits for another: one plain launch, no grid
+// barrier.  With peer-mapped pointers each card's launch would push its own
+// slot alone (the group of its shard) and still no block would wait on
+// another card; on an NVLink all-to-all host a one-shot push is the usual
+// all-gather.
+// Bound: bytes, n chunks read and n^2 written, which is what it moves.
 __global__ void __launch_bounds__(COLL_THREADS)
 ring_all_gather_kernel(ShardPtrs p, int n, long long words) {
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int per = (int)gridDim.x / n;
-  const int k = (int)blockIdx.x / per;
-  const int b = (int)blockIdx.x % per;
-  const int right = (k + 1) % n;
-  copy_words(p.in[k], p.out[k] + (long long)k * words, words, b, per);
-  copy_words(p.in[k], p.out[right] + (long long)k * words, words, b, per);
-  for (int h = 1; h < n - 1; ++h) {
-    grid.sync();
-    const long long slot = (k - h + n) % n;
-    copy_words(p.out[k] + slot * words, p.out[right] + slot * words, words, b,
-               per);
+  const int s = (int)blockIdx.x / per;
+  const int4* src = reinterpret_cast<const int4*>(p.in[s]);
+  const long long units = words / 4;
+  for (long long i = (long long)((int)blockIdx.x % per) * blockDim.x + threadIdx.x;
+       i < units; i += (long long)per * blockDim.x) {
+    const int4 v = __ldg(src + i);
+    for (int k = 0; k < n; ++k)
+      reinterpret_cast<int4*>(p.out[k] + s * words)[i] = v;
   }
 }
 
@@ -84,10 +81,11 @@ exchange_kernel(ShardPtrs p, int n, int stride, long long words) {
   copy_words(p.in[k], p.out[k ^ stride], words, (int)blockIdx.x % per, per);
 }
 
-// Blocks a shard: enough for one 16-byte unit a thread, at most `cap`.
-static inline int blocks_per_shard(long long words, long long cap) {
+// Blocks a shard: enough for one 16-byte unit a thread, at most
+// COLL_MAX_BLOCKS.
+static inline int blocks_per_shard(long long words) {
   long long want = (words / 4 + COLL_THREADS - 1) / COLL_THREADS;
-  if (want > cap) want = cap;
+  if (want > COLL_MAX_BLOCKS) want = COLL_MAX_BLOCKS;
   return want < 1 ? 1 : (int)want;
 }
 
@@ -95,24 +93,9 @@ extern "C" int fhe_ring_all_gather(ShardPtrs p, int n, long long words,
                                    void* stream) {
   if (n < 2 || n > FHE_MAX_SHARDS || words < 4 || words % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ring_all_gather_kernel, COLL_THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  // a cooperative grid must fit the card at once
-  const long long resident = (long long)per_sm * sms / n;
-  if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int per = blocks_per_shard(words, resident);
-  void* args[] = {&p, &n, &words};
-  err = cudaLaunchCooperativeKernel((void*)ring_all_gather_kernel,
-                                    dim3((unsigned)(per * n)),
-                                    dim3(COLL_THREADS), args, 0,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
+  const int per = blocks_per_shard(words);
+  ring_all_gather_kernel<<<per * n, COLL_THREADS, 0, (cudaStream_t)stream>>>(
+      p, n, words);
   return (int)cudaGetLastError();
 }
 
@@ -121,7 +104,7 @@ extern "C" int fhe_exchange(ShardPtrs p, int n, int stride, long long words,
   if (n < 2 || n > FHE_MAX_SHARDS || words < 4 || words % 4 != 0 || stride < 1 ||
       (stride & (stride - 1)) != 0 || n % (2 * stride) != 0)
     return (int)cudaErrorInvalidValue;
-  const int per = blocks_per_shard(words, 1024);
+  const int per = blocks_per_shard(words);
   exchange_kernel<<<per * n, COLL_THREADS, 0, (cudaStream_t)stream>>>(
       p, n, stride, words);
   return (int)cudaGetLastError();

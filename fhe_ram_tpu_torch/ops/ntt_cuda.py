@@ -25,8 +25,9 @@ radix-2 body and once with the two-pass 64 x 64 body (-DFHE_NTT_TWO_PASS,
 csrc/fhe_core.cuh); their wrappers launch the variant of the context's body
 (ops/ntt.py) and count it under their own name, with "_two_pass" appended
 for the second body.  fold.cu (kernels 2 and 5) is built once: its
-transform is its own (three radix-16 passes in registers), it serves both
-bodies' contexts with the same integers and counts under its own name.
+transform is its own (three radix-16 passes in registers, fold_body.cuh,
+which pack_merge.cu shares), it serves both bodies' contexts with the same
+integers and counts under its own name.
 The other kernels have the radix-2 body only: a two-pass context routes
 around them (ops.ntt.fused_path_active).  Helpers that build the trace
 step, the split level and the pack merge from one fold (trace_step,
@@ -54,6 +55,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -82,18 +84,19 @@ _MAX_OPS = 16     # FHE_MAX_OPS of csrc/dp_chain.cu, bitwise.cu: ops of a VM gro
 MAX_SHARDS = 16   # FHE_MAX_SHARDS of csrc/collective.cu: shards of a collective
 _MAX_SMEM = 232448  # bytes of shared memory one block can use on sm_90
 _SM_SMEM = 233472   # bytes of shared memory of an SM, 1 KB a block reserved
-# Rows up to which a launch of the fold_row kernels (trace, merges,
-# splits, trees, VM chains) gives each row a cluster of 6 resp. 3 blocks
+# Rows up to which a launch of the fold_row kernels (trace, splits, trees,
+# VM chains) gives each row a cluster of 6 resp. 3 blocks
 # (timed on an H100 with tools/time_fold_chunks.py: at T = 2, M = 6 a
 # cluster of 6 wins up to 32 rows, of 3 up to 128, one block a row beyond).
 _ROWS_CLUSTER_6 = 32
 _ROWS_CLUSTER_3 = 128
-# The fold (csrc/fold.cu) gives every row a cluster of 3 blocks, one a
-# prime, or of 6 (the output components shared by two groups of 3) up to
-# this many rows; tools/time_fold_predecessor.py times both.
+# The fold (csrc/fold.cu) and the merge on its body (pack_merge.cu) give
+# every row a cluster of 3 blocks, one a prime, or of 6 (the output
+# components shared by two groups of 3) up to this many rows;
+# tools/time_fold_predecessor.py times both.
 _FOLD_ROWS_6 = 32
-# Most clusters a fold launch starts; with more rows than this each walks
-# over several (the 2^24 level 0: 16,384 rows).
+# Most clusters a fold or merge launch starts; with more rows than this
+# each walks over several (the 2^24 level 0: 16,384 rows).
 _MAX_ROW_GROUPS = 1024
 _FOLD_MAX_LK = 8  # FOLD_MAX_LK of csrc/fold.cu: key limbs a fold takes
 
@@ -199,39 +202,71 @@ def _find_nvcc() -> str:
     return found
 
 
+def source_text(src: Path) -> bytes:
+    """The bytes of a CUDA source and of every header it includes with
+    `#include "..."`, directly or not (looked up beside the including file,
+    then in csrc/): what a build's content hash covers."""
+    out, seen, todo = [], set(), [Path(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        out.append(text)
+        for inc in re.findall(rb'#include "([^"]+)"', text):
+            near = path.parent / inc.decode()
+            todo.append(near if near.exists() else _CSRC / inc.decode())
+    return b"".join(out)
+
+
+def start_build(src: Path, stem: str, flags=()):
+    """Start `nvcc` on src (sm_90a, -Xptxas -v) into build/libfhe_<stem>_<tag>.so,
+    the tag a hash of source_text(src) and the flags.  Returns (so, job):
+    job is None when that library is built already, else (tmp, process)
+    for finish_build."""
+    tag = hashlib.sha256(source_text(src) + " ".join(flags).encode()).hexdigest()[:16]
+    _BUILD.mkdir(exist_ok=True)
+    so = _BUILD / f"libfhe_{stem}_{tag}.so"
+    if so.exists():
+        return so, None
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           *flags, "-I", str(_CSRC), "-o", str(tmp), str(src)]
+    return so, (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+
+
+def finish_build(what: str, so: Path, job, verbose: bool = False):
+    """Wait for a start_build job; raise with nvcc's log if it failed."""
+    if job is None:
+        return
+    tmp, proc = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what}:\n{log}")
+    if verbose:
+        print(f"{what}:\n{log}")
+    os.replace(tmp, so)
+
+
 def build_kernels(verbose: bool = False):
     """Compile csrc/*.cu into build/ (one nvcc per source and body, in
     parallel) and return {(name, body): ctypes library}.  Raises on any
     compiler error."""
-    nvcc = _find_nvcc()
-    header = (_CSRC / "fhe_core.cuh").read_bytes()
-    _BUILD.mkdir(exist_ok=True)
+    _find_nvcc()
     jobs, paths = [], {}
     for name in SOURCES:
-        src = _CSRC / f"{name}.cu"
         for body in BODIES if name in BODY_SOURCES else ("radix2",):
-            flags = _BODY_FLAGS[body]
             # the body's flags are part of the tag and the name: the two
             # variants of one source must not overwrite each other
-            tag = hashlib.sha256(header + src.read_bytes()
-                                 + " ".join(flags).encode()).hexdigest()[:16]
-            so = _BUILD / f"libfhe_{name}_{body}_{tag}.so"
+            so, job = start_build(_CSRC / f"{name}.cu", f"{name}_{body}",
+                                  _BODY_FLAGS[body])
             paths[name, body] = so
-            if so.exists():
-                continue
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                   *flags, "-I", str(_CSRC), "-o", str(tmp), str(src)]
-            jobs.append((f"csrc/{name}.cu ({body})", so, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for what, so, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {what}:\n{log}")
-        if verbose:
-            print(f"{what}:\n{log}")
-        os.replace(tmp, so)
+            jobs.append((f"csrc/{name}.cu ({body})", so, job))
+    for what, so, job in jobs:
+        finish_build(what, so, job, verbose)
 
     vp, ci, cip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     libs = {key: ctypes.CDLL(str(path)) for key, path in paths.items()}
@@ -244,8 +279,8 @@ def build_kernels(verbose: bool = False):
                                        _Tables, vp],
         ("trace", "fhe_trace"): [vp, vp, vp, vp, vp, ci, _TraceSteps, ci,
                                  _FoldShape, _Consts, _Tables, vp],
-        ("pack_merge", "fhe_pack_merge"): [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                           _FoldShape, _Consts, _Tables, vp],
+        ("pack_merge", "fhe_pack_merge"): [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                           _FoldShape, _Consts, _FoldTables, vp],
         ("split", "fhe_split"): [vp, vp, vp, vp, vp, ci, ci, ci, _FoldShape,
                                  _Consts, _Tables, vp],
         ("split_tree", "fhe_split_tree_blocks"): [_FoldShape, ci, cip],
@@ -530,11 +565,12 @@ _sm_count = {}
 
 
 def _fold_blocks(blocks_total: int, T: int, Lk: int, device) -> int:
-    """The instantiation of csrc/fold.cu a launch of `blocks_total` blocks
-    takes: 2 (128 registers a thread, two blocks an SM) when the shape's
-    shared memory lets two blocks share an SM and there are more blocks than
-    SMs; else 1 (up to 255 registers: a launch that holds one block an SM
-    anyway, or a short one, runs the single block faster)."""
+    """The instantiation of csrc/fold.cu (or pack_merge.cu, on the same body)
+    a launch of `blocks_total` blocks takes: 2 (128 registers a thread, two
+    blocks an SM) when the shape's shared memory, (T + Lk) polys a block,
+    lets two blocks share an SM and there are more blocks than SMs; else 1
+    (up to 255 registers: a launch that holds one block an SM anyway, or a
+    short one, runs the single block faster)."""
     index = torch.device(device).index or 0
     if index not in _sm_count:
         _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
@@ -556,7 +592,8 @@ def _aligned16(t):
 
 def _fold_shape_arg(rows: int, T: int, M: int, c2: int, out_limbs: int,
                     sign: int) -> _FoldShape:
-    """csrc/fold.cu's shape argument (`mc` is not read there)."""
+    """csrc/fold.cu's and pack_merge.cu's shape argument (`mc` is not read
+    there)."""
     return _FoldShape(T, M, M // c2, out_limbs, c2, -1 if sign < 0 else 1, 0,
                       _fold_cs(rows, c2))
 
@@ -816,7 +853,7 @@ def fused_pack_merge(ctx: NTTContext, A, B, t_rot: int, g: int, key_ntt):
     level takes the pre-shifted, unnormalized rows); key_ntt: int32[P, T,
     M, N] (T = rank*Td, M = C2*Lk).  Returns int32[nb, C2, L, N]."""
     nb, C2, L, n = A.shape
-    P, T, M, n3 = key_ntt.shape
+    _, T, M, n3 = key_ntt.shape
     rank = C2 - 1
     if (tuple(B.shape) != tuple(A.shape) or n != ctx.n or n3 != n or T % rank
             or M % C2 or T // rank > L):
@@ -824,19 +861,26 @@ def fused_pack_merge(ctx: NTTContext, A, B, t_rot: int, g: int, key_ntt):
     _fold_limits(T, M, C2, L, n)
     if not _use_kernel(ctx, A):
         return fused_pack_merge_plain(ctx, A, B, t_rot, g, key_ntt)
+    # csrc/pack_merge.cu keeps the T spectra and max(Lk, 3) residue polys
+    # (the third doubles as the staging buffer of v) in shared memory
+    polys = T + max(M // C2, 3)
+    if M // C2 > _FOLD_MAX_LK or polys * 4 * n > _MAX_SMEM:
+        raise ValueError(f"T = {T} digit polys and {M // C2} key limbs do not fit "
+                         "the merge's shared memory")
     A = _require(A, "A")
     B = _require(B, "B")
-    key_ntt = _require(key_ntt, "key_ntt")
+    key_ntt = _aligned16(_require(key_ntt, "key_ntt"))
     out = torch.empty_like(A)
     if nb == 0:
         return out
-    scratch = torch.empty((nb, P, M, n), dtype=I32, device=A.device)
-    sh = _fold_shape(nb, T, M, C2, L, -1, n)
+    sh = _fold_shape_arg(nb, T, M, C2, L, -1)
+    clusters = min(nb, _MAX_ROW_GROUPS)
     with torch.cuda.device(A.device):
         err = _lib("pack_merge").fhe_pack_merge(
-            A.data_ptr(), B.data_ptr(), key_ntt.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), nb, t_rot % (2 * n), poly.auto_inverse(n, g),
-            T // rank, sh, _consts(ctx), _tables(ctx, A.device), _stream())
+            A.data_ptr(), B.data_ptr(), key_ntt.data_ptr(), out.data_ptr(), nb,
+            clusters, t_rot % (2 * n), poly.auto_inverse(n, g), T // rank,
+            _fold_blocks(clusters * sh.cs, T, polys - T, A.device), sh, _consts(ctx),
+            _fold_tables(ctx, A.device), _stream())
     _check(err, "fused_pack_merge")
     LAUNCHES["fused_pack_merge"] += 1
     return out

@@ -1,7 +1,7 @@
-"""The collectives of the row-sharded pack (parallel/mesh.py): a ring
-all-gather and an XOR-partner exchange over the `rows` shards, each one
-hand-written CUDA kernel (csrc/collective.cu), with its plain PyTorch
-version beside it.
+"""The collectives of the row-sharded pack (parallel/mesh.py): an
+all-gather (the reference's ring, here one push launch) and an XOR-partner
+exchange over the `rows` shards, each one hand-written CUDA kernel
+(csrc/collective.cu), with its plain PyTorch version beside it.
 
 Counterpart of fhe_ram_tpu/parallel/collective.py.  A shard's chunk is a
 tensor, the shards' chunks a list in shard order.  On one card every chunk
@@ -96,11 +96,14 @@ def ring_all_gather_plain(chunks):
 
 
 def ring_all_gather(chunks):
-    """All-gather one chunk a shard: returns, for every shard k, a new
-    tensor [n, *chunk.shape] with out_k[s] = chunks[s] -- a drop-in for
-    the reference's ring_all_gather inside its shard_map.  One kernel
-    launch (csrc/collective.cu: n - 1 ring hops in one cooperative
-    launch); one shard returns chunks[0][None] and launches nothing."""
+    """All-gather one chunk a shard: returns, for every shard k, a tensor
+    [n, *chunk.shape] with out_k[s] = chunks[s] -- a drop-in for the
+    reference's ring_all_gather inside its shard_map, whose name it keeps.
+    One kernel launch (csrc/collective.cu): a one-shot push of every chunk
+    into every shard's output, not a ring, since the order of the hops is
+    not seen in the output.  The n outputs are views of one [n, n, ...]
+    tensor (one allocation).  One shard returns chunks[0][None] and
+    launches nothing."""
     chunks = _check_chunks(chunks)
     n = len(chunks)
     if n == 1:
@@ -108,8 +111,8 @@ def ring_all_gather(chunks):
     if not _use_kernel(chunks):
         return ring_all_gather_plain(chunks)
     ins = _kernel_inputs(chunks)
-    outs = [torch.empty((n,) + tuple(c.shape), dtype=I32, device=c.device)
-            for c in ins]
+    outs = list(torch.empty((n, n) + tuple(ins[0].shape), dtype=I32,
+                            device=ins[0].device).unbind(0))
     if ins[0].numel():
         with torch.cuda.device(ins[0].device):
             err = ntt_cuda._lib("collective").fhe_ring_all_gather(

@@ -23,9 +23,7 @@ the card's name and power limit first.
 
 import argparse
 import ctypes
-import hashlib
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -46,39 +44,55 @@ NB_RMW, NA = 16, 8   # chip_smoke.py's batches
 keys_of = {}         # shape note -> (T, Lk)
 
 
+def build_tools(specs):
+    """{key: ctypes function}: for each key, (source in tools/, entry point,
+    argtypes, nvcc flags), built into build/ by ops/ntt_cuda.start_build (the
+    tag hashes the source, the headers it includes and the flags), every
+    nvcc started before the first is awaited."""
+    jobs = {key: ntt_cuda.start_build(HERE / src, f"{Path(src).stem}_{key}", flags)
+            for key, (src, _, _, flags) in specs.items()}
+    fns = {}
+    for key, (so, job) in jobs.items():
+        src, entry, argtypes, _ = specs[key]
+        ntt_cuda.finish_build(f"tools/{src} ({key})", so, job)
+        fns[key] = getattr(ctypes.CDLL(str(so)), entry)
+        fns[key].argtypes = argtypes
+        fns[key].restype = ctypes.c_int
+    return fns
+
+
 def build_predecessor():
     """{body: ctypes function fhe_fold_predecessor}, built into build/."""
-    nvcc = ntt_cuda._find_nvcc()
-    src = HERE / "fold_predecessor.cu"
-    text = (ntt_cuda._CSRC / "fhe_core.cuh").read_bytes() + src.read_bytes()
-    ntt_cuda._BUILD.mkdir(exist_ok=True)
-    jobs = {}
-    for body, flags in (("radix2", []), ("two_pass", ["-DFHE_NTT_TWO_PASS"])):
-        tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
-        so = ntt_cuda._BUILD / f"libfhe_fold_predecessor_{body}_{tag}.so"
-        if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                   "-O3", "-shared", "-Xcompiler", "-fPIC", *flags, "-I",
-                   str(ntt_cuda._CSRC), "-o", str(tmp), str(src)]
-            jobs[body] = (so, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                    stderr=subprocess.STDOUT, text=True))
-        else:
-            jobs[body] = (so, None, None)
-    fns = {}
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for body, (so, tmp, proc) in jobs.items():
-        if proc is not None:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                sys.exit(f"nvcc failed on fold_predecessor.cu ({body}):\n{log}")
-            os.replace(tmp, so)
-        fn = ctypes.CDLL(str(so)).fhe_fold_predecessor
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ntt_cuda._FoldShape,
-                       ntt_cuda._Consts, ntt_cuda._Tables, vp]
-        fn.restype = ci
-        fns[body] = fn
-    return fns
+    args = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ntt_cuda._FoldShape,
+            ntt_cuda._Consts, ntt_cuda._Tables, vp]
+    return build_tools({
+        body: ("fold_predecessor.cu", "fhe_fold_predecessor", args, flags)
+        for body, flags in (("radix2", []), ("two_pass", ["-DFHE_NTT_TWO_PASS"]))})
+
+
+def time_ms(fn, reps, flush):
+    """Median of `reps` calls of fn in ms by CUDA events, after one warm
+    call; the L2 cache overwritten (flush) before each."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        flush.add_(1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
 
 
 def _rows(x, keys, x_is_ntt, batched):
@@ -212,9 +226,7 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("time_fold_predecessor: no CUDA device")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip(), flush=True)
+    print(card(), flush=True)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     ctx = get_ntt_context(PAR.n, PAR.primes)
@@ -228,18 +240,7 @@ def main():
                              dtype=torch.int32).to(dev)
 
     def t_ms(fn):
-        fn()
-        ts = []
-        for _ in range(args.reps):
-            flush.add_(1)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            ts.append(a.elapsed_time(b))
-        return statistics.median(ts)
+        return time_ms(fn, args.reps, flush)
 
     for note, rows, c2, new, make_pred, make_new_at in shapes(ctx, limbs, dev):
         calls = {"new": new, "radix2": make_pred(pred["radix2"]),

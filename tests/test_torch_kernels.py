@@ -633,6 +633,47 @@ class _FoldEmu:
         return y[:, _swz(torch.arange(_FOLD_N))]           # the Garner's reads
 
 
+    # csrc/pack_merge.cu's glue around this body (a, b: int64[N] polys of a
+    # row pair; t_rot in [0, 2N); ginv = g^-1 mod 2N)
+
+    @staticmethod
+    def rot_at(poly, j, k):
+        """fhe_core.cuh rot_at: (X^k poly)[j]."""
+        kk = k & (_FOLD_N - 1)
+        v = torch.where(j < kk, -poly[(_FOLD_N - kk + j) % _FOLD_N], poly[(j - kk) % _FOLD_N])
+        return -v if k >= _FOLD_N else v
+
+    @staticmethod
+    def sigma_src(i, ginv):
+        """fhe_core.cuh sigma_src: (source word, sign flip) of sigma_g at i."""
+        i0 = (ginv * i) & (2 * _FOLD_N - 1)
+        return i0 & (_FOLD_N - 1), i0 >= _FOLD_N
+
+    def merge_digit(self, a, b, t_rot, ginv):
+        """A digit poly as forward() loads it: v = a - X^t b staged by
+        thread t at words t + 256 r (natural order), then read back at
+        sigma_src(i) with sigma's sign for this thread's i = t + 256 r
+        (layout L0).  Returns int64[256, 16] and the banks of those reads,
+        [8 warps, 32 lanes, 16]."""
+        j = _lay(0, self.t, self.r)[0]
+        staged = torch.full((_FOLD_N,), 1 << 40, dtype=torch.int64)
+        staged[j.reshape(-1)] = (a[j] - self.rot_at(b, j, t_rot)).reshape(-1)
+        assert bool((staged < (1 << 40)).all()), "a staged word left unwritten"
+        src, neg = self.sigma_src(j, ginv)
+        v = staged[src]
+        return torch.where(neg, -v, v), (src % 32).reshape(8, 32, 16)
+
+    def merge_base(self, a, b, t_rot, ginv, b_comp):
+        """MergeBase: a + X^t b at every coefficient, plus sigma_g(a - X^t b)
+        gathered from the inputs at the b component."""
+        i = torch.arange(_FOLD_N)
+        u = a + self.rot_at(b, i, t_rot)
+        if b_comp:
+            src, neg = self.sigma_src(i, ginv)
+            v = a[src] - self.rot_at(b, src, t_rot)
+            u = u + torch.where(neg, -v, v)
+        return u
+
 def test_fold_kernel_index_arithmetic_matches_the_plain_transforms():
     """csrc/fold.cu emulated at N = 4096 for the three DEFAULT_PRIMES: two
     digit polys through the forward transform (int32 extremes included),
@@ -736,3 +777,43 @@ def test_fold_kernel_index_arithmetic_matches_the_plain_transforms():
     v3 = center(torch.minimum(u3, (u3 - p3_) & m32), p3_)
     w1, w2, w3 = garner_digits(primes, res)
     assert torch.equal(v1, w1) and torch.equal(v2, w2) and torch.equal(v3, w3)
+
+
+def test_merge_kernel_glue_matches_pack_merge_level():
+    """csrc/pack_merge.cu's digit loads (v = A - X^t B staged in shared
+    memory, gathered at sigma_g's source words) and its base (u plus
+    sigma_g(v) at the b component), emulated at N = 4096, against the x and
+    base that pack_merge_level hands its fold, bit for bit, at the six
+    (t, g) of the read's merge levels and at one t >= N; every gather of a
+    warp hits 32 distinct banks."""
+    from fhe_ram_tpu_torch.ops import poly
+    from fhe_ram_tpu_torch.params import DEFAULT_PRIMES
+
+    emu = _FoldEmu(tget_ctx(_FOLD_N, DEFAULT_PRIMES))
+    C2, L, Td = 2, 3, 2
+    rnd = np.random.default_rng(11)
+    A, B = (torch.from_numpy(rnd.integers(-(1 << 17), 1 << 17, size=(1, C2, L, _FOLD_N),
+                                          dtype=np.int64).astype(np.int32)) for _ in range(2))
+    key = torch.zeros((3, (C2 - 1) * Td, C2 * 3, 1), dtype=torch.int32)
+    seen = {}
+
+    def fold(ctx, x, keys, out_limbs, c2, base=None, sign=1):
+        seen.update(x=x.to(torch.int64), base=base.to(torch.int64), sign=sign)
+
+    a64, b64 = A[0].to(torch.int64), B[0].to(torch.int64)
+    pos0 = _lay(0, emu.t, emu.r)[0]
+    for t_rot, g in [(1 << l, (_FOLD_N >> l) + 1) for l in range(6)] + [(_FOLD_N + 3, 5)]:
+        ntt_cuda.pack_merge_level(None, A, B, t_rot, g, key, fold)
+        assert seen["sign"] == -1
+        ginv = poly.auto_inverse(_FOLD_N, g)
+        for tt in range((C2 - 1) * Td):
+            c, l = divmod(tt, Td)
+            got, banks = emu.merge_digit(a64[c, l], b64[c, l], t_rot % (2 * _FOLD_N), ginv)
+            assert torch.equal(got, seen["x"][0, tt][pos0]), (t_rot, g, tt)
+            assert torch.equal(banks.sort(dim=1).values,
+                               torch.arange(32).reshape(1, 32, 1).expand(8, 32, 16))
+        for c2 in range(C2):
+            for l in range(L):
+                got = emu.merge_base(a64[c2, l], b64[c2, l], t_rot % (2 * _FOLD_N), ginv,
+                                     c2 == C2 - 1)
+                assert torch.equal(got, seen["base"][0, c2, l]), (t_rot, g, c2, l)
