@@ -22,8 +22,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  bodies, the two-pass variant also bit-equal to the radix-2
                  one; kernels 2 and 5 (one build for both bodies) with their
                  registers and blocks an SM, and timed at the 2^24 read's
-                 level 0, as kernel 4 (on the same body) is; kernel 12 (on no path) also folded and held
-                 against kernel 2
+                 level 0, as kernel 4 (on the same body) is; kernels 3 and 6
+                 (on that body too) at a read's, a write's and a batch's
+                 shapes, the split up to the per-level batched RMW's last
+                 level (2048 rows); kernel 12 (on no path) also folded and
+                 held against kernel 2
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -92,7 +95,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  every new data shard bit-equal
   sharded_vs_plain  one sharded read again through the plain versions on the
                  card, collectives included: every shard's output bit-equal
-  kernels        one line for all kernels: launches over the twelve paths,
+  kernels        one line for all kernels: launches over the thirteen paths,
                  error, time, the plain version's time, the card's bound, and
                  for the collectives the library call's time
 
@@ -701,12 +704,17 @@ def main():
     del A, Bc, ctb
 
     # kernel 6: last (nb = 128) and first (nb = 4) level of the write's
-    # slot extraction
-    for nb, l in ((W * R // 2, 5), (W, 0)):
+    # slot extraction, and the last level of the per-level batched
+    # read-modify-write's (nb = NB_RMW * 128)
+    for nb, l in ((W * R // 2, 5), (W, 0), (NB_RMW * W * R // 2, 5)):
         cts = limbs((nb, C, L, n))
         t_rot, g = 1 << l, gals[l]
         check("fused_split", f"ct[{nb},{C},{L},4096] t={t_rot} g={g} key[3,{T_kf},{M_kf},4096]",
-              lambda: ntt_cuda.fused_split(ctx, cts, t_rot, g, key_kf))
+              lambda: ntt_cuda.fused_split(ctx, cts, t_rot, g, key_kf),
+              plain_reps=1 if nb > W * R else 3,
+              work=(poly_b * (3 * nb * C * L + P * T_kf * M_kf),
+                    fold_ops(nb, T_kf, M_kf, n) + 4 * nb * C * L * n))
+    del cts
 
     # kernels 7 and 8: the one-launch trees at the shapes of a single write
     # (nb = W = 4 roots) and of a batched read-modify-write of 16 (nb = 64),
@@ -1083,6 +1091,7 @@ def main():
     words, w_b = word_batch(args.seed + 202, NB_RMW)
     torch.cuda.reset_peak_memory_stats()
     tree_ms, level_ms, l_levels = [], [], None
+    level_launches = dict.fromkeys(ntt_cuda.LAUNCHES, 0)   # the per-level server's calls
     for _ in range(4):
         (outs_t, st_t), ms = timed(
             lambda: tree_server.rmw_batch(state, rmw_prep_b, rmw_coeff_b, w_b))
@@ -1090,6 +1099,8 @@ def main():
         (outs_l, st_l), ms, l_levels = launches_of(
             lambda: server.rmw_batch(state, rmw_prep_b, rmw_coeff_b, w_b))
         level_ms.append(ms)
+        for k, v in l_levels.items():
+            level_launches[k] += v
     rmw_batch_peak = torch.cuda.max_memory_allocated()
     expect_launches("rmw_batch with the per-level kernels", l_levels,
                     fused_external_fold_batched=4, fused_external_fold=4,
@@ -1951,11 +1962,13 @@ def main():
                statistics.median(srmw_ms))
 
     # ---- the kernels' line --------------------------------------------------
-    # launches over the twelve paths, each counted from 0 just before it was
-    # driven to just after (comparisons and read-backs are outside).  Kernel
-    # 12 lies on no path of either package: its checks above are all it gets.
+    # launches over the thirteen paths, each counted from 0 just before it
+    # was driven to just after (comparisons and read-backs are outside; the
+    # per-level batched RMW: its four timed calls).  Kernel 12 lies on no
+    # path of either package: its checks above are all it gets.
     by_path = {"read": path_launches, "rmw": rmw_launches,
                "read_batch": batch_launches, "rmw_batch": rmw_batch_launches,
+               "rmw_batch_per_level": level_launches,
                "composed_read": c_read_launches, "composed_rmw": c_rmw_launches,
                "composed_batch": c_batch_launches,
                "vm_cycle": vm_launches, "read_2_24": read24_launches,
@@ -2062,7 +2075,7 @@ def main():
                                                 "library_ms", "bound_ms")}
                               for r in checks[k["name"]]]
         if k["name"] in ("fused_external_fold", "fused_external_fold_batched",
-                         "fused_pack_merge"):
+                         "fused_pack_merge", "fused_trace", "fused_split"):
             k["per_shape"] = [{f: r.get(f) for f in ("shape", "ms", "plain_ms", "bound_ms",
                                                      "bound_by")}
                               for r in checks[k["name"]] + timed_only.get(k["name"], [])]

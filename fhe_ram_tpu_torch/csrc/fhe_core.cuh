@@ -377,8 +377,8 @@ struct CoefficientDigits {
 
 // Glue of one trace step on a row: digits sigma_g(ct)[mask, l < Td], base
 // ct + sigma_g(ct) at the b component, so that fold_row with sign -1 gives
-// normalize(ct + KS(sigma_g(ct))).  The trace chains it; the split takes
-// one step as its first child.
+// normalize(ct + KS(sigma_g(ct))).  The split tree (split_row) takes one
+// step as a level's first child.
 struct TraceStepGlue : CoefficientDigits {
   const int* ct;  // [C2, L, n] of this row, the step's input; read through
                   // L2, since another block of the cluster may have written it
@@ -411,9 +411,9 @@ struct TraceStepGlue : CoefficientDigits {
 //                bool spectral()                  -- the digits come as
 //                int spectrum(int pi, int t, int i)  spectra of prime pi
 //                                                    (any representative)
-// so the fold, trace, pack-merge and split kernels differ only in their
-// Glue.  With spectral() the forward transform is skipped: spectrum() is
-// reduced to its canonical residue on load.
+// so the kernels built on it differ only in their Glue.  With spectral()
+// the forward transform is skipped: spectrum() is reduced to its canonical
+// residue on load.
 //
 // A row is the work of the row.cs blocks of `row` (ClusterRow or GridRow
 // above; sh.cs is not read here).  cs = 1: one block loops over the
@@ -422,7 +422,7 @@ struct TraceStepGlue : CoefficientDigits {
 // (each block transforms the T digit polys of its prime itself), and the
 // last phase is split over the coefficients.  A single row on one SM is
 // bound by that SM's instruction rate (~0.45 ms at T = 2, M = 6), so the
-// launches with few rows (the trace, the deep merge levels) take clusters.
+// launches with few rows (the trees' deep levels) take clusters.
 //
 // Shared memory holds ONE prime's T spectra plus sh.mc accumulator polys:
 // (T + mc) * 4n bytes (112 KB at T = 4, mc = 3, n = 4096).  More polys per

@@ -67,8 +67,9 @@
 //    otherwise (few rows, or T + Lk > 7), and a cluster of 6 up to 32 rows
 //    (tools/time_fold_predecessor.py times every choice at every shape).
 //  * The device functions (transforms, products, Garner step, launch) are
-//    in fold_body.cuh, which the pack merge (kernel 4, pack_merge.cu)
-//    shares; this file holds the fold's row loop and entry point.
+//    in fold_body.cuh, which the pack merge (kernel 4, pack_merge.cu), the
+//    trace (kernel 3, trace.cu) and the split (kernel 6, split.cu) share;
+//    this file holds the fold's row loop and entry point.
 #include "fold_body.cuh"
 
 // rows = A * B ciphertext rows, row r = (item r / B, row r % B of the item).
@@ -156,9 +157,9 @@ fold_kernel(const int* __restrict__ x, const uint32_t* __restrict__ keys,
         cluster_arrive();   // every block's residues of component c2 are in
         cluster_wait();
         const int* base_row = base ? base + r * row_polys * FOLD_N : nullptr;
-        garner_fold(R, grp, pi, c2, out + r * row_polys * FOLD_N,
+        garner_fold(R, grp, pi, c2,
                     [&](int, int, int, long long at) { return base_row ? base_row[at] : 0; },
-                    sh, c, tb);
+                    RowStore{out + r * row_polys * FOLD_N}, sh, c, tb);
         cluster_arrive();   // done reading the cluster's residues
         pending = true;
       }

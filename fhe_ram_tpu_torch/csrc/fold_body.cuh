@@ -1,12 +1,15 @@
 // The fold body of csrc/fold.cu, shared by the kernels built on it: the
-// fold (kernels 2 and 5, fold.cu) and the pack merge (kernel 4,
-// pack_merge.cu).  fold.cu's note sets out the design; this header holds its
-// device functions: the Shoup and lazy arithmetic, the three register
-// layouts and the swizzle of the exchange buffers, the radix-16 transforms
-// (`forward` takes a loader of the digit poly's coefficients, `inverse`),
-// the key products, the Garner and the Garner/fold/carry step over
-// distributed shared memory (`garner_fold` takes the base to add as a
-// functor), and the cluster launch.
+// fold (kernels 2 and 5, fold.cu), the pack merge (kernel 4,
+// pack_merge.cu), the trace chain (kernel 3, trace.cu) and the split level
+// (kernel 6, split.cu).  fold.cu's note sets out the design; this header
+// holds its device functions: the Shoup and lazy arithmetic, the three
+// register layouts and the swizzle of the exchange buffers, the radix-16
+// transforms (`forward` takes a loader of the digit poly's coefficients,
+// `inverse`), the key products, the Garner and the Garner/fold/carry step
+// over distributed shared memory (`garner_fold` takes the base to add
+// and what to do with each normalized limb as functors), one trace step of
+// a row (`trace_step`, which kernels 3 and 6 share), and the cluster
+// launch.
 #pragma once
 
 #include "fhe_core.cuh"
@@ -269,10 +272,13 @@ __device__ __forceinline__ long long garner(uint32_t r1, uint32_t r2, uint32_t r
 // multiples of 32 so that a warp's reads stay in one swizzle block); R_q:
 // the residue polys of the group's block of prime q.  base(c2, l, i, at):
 // what is added to limb l of coefficient i before the carry, at = the word
-// (c2 * Lout + l) * n + i of the row.
-template <class Base>
+// (c2 * Lout + l) * n + i of the row.  store(c2, l, i, at, dl, carry): what
+// becomes of the normalized limb dl; the limbs of a coefficient come from
+// l = Lout - 1 down to 0, and `carry`, 0 before the first, is the hook's
+// own from one limb to the next.
+template <class Base, class Store>
 __device__ __forceinline__ void garner_fold(const uint32_t* R, int grp, int pi, int c2,
-                                            int* out_row, const Base& base,
+                                            const Base& base, const Store& store,
                                             const FoldShape& sh, const FheConsts& c,
                                             const FoldTables& tb) {
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
@@ -306,7 +312,7 @@ __device__ __forceinline__ void garner_fold(const uint32_t* R, int grp, int pi, 
         }
       }
     }
-    int carry = 0;
+    int carry = 0, hook_carry = 0;
 #pragma unroll
     for (int l = FHE_MAX_L - 1; l >= 0; --l) {
       if (l < Lout) {
@@ -316,9 +322,127 @@ __device__ __forceinline__ void garner_fold(const uint32_t* R, int grp, int pi, 
         v += carry;
         const int dl = ((v + 65536) & 131071) - 65536;
         carry = (v - dl) >> 17;
-        out_row[at] = dl;
+        store(c2, l, i, at, dl, hook_carry);
       }
     }
+  }
+}
+
+// The store of the fold, the merge and the trace: limb l of coefficient i
+// to its word of the output row.
+struct RowStore {
+  int* out_row;
+  __device__ __forceinline__ void operator()(int, int, int, long long at, int dl,
+                                             int&) const {
+    out_row[at] = dl;
+  }
+};
+
+// The base of a trace step's carry at (c2, l, i): ct, plus sigma_g(ct) at
+// the b component, gathered from L2 (ct may be what an earlier step of the
+// same launch wrote).
+struct TraceBase {
+  const int* ct;   // [C2, L, n] of the row
+  int ginv, b_comp;
+  __device__ __forceinline__ int operator()(int c2, int, int i, long long at) const {
+    const int* a = ct + (at - i);
+    int u = __ldcg(a + i);
+    if (c2 == b_comp) {
+      bool neg;
+      const int src = sigma_src(i, ginv, FOLD_N, neg);
+      const int v = __ldcg(a + src);
+      u += neg ? -v : v;
+    }
+    return u;
+  }
+};
+
+// One trace step on a row, this block's part of it:
+//   normalize(ct + KS(sigma_g(ct))),  ct = st.in() [C2, L, n],
+// the digits the top Td limbs of sigma_g(ct)'s mask components (T = rank *
+// Td), sign -1.  st supplies, each made where it is used (held across the
+// transforms, pointers spill at 128 registers):
+//   const int* in()            the row's input, read through L2 only
+//   int ginv()                 g^-1 mod 2n
+//   const uint32_t* key(pi)    prime pi's key rows, uint32[T, M, n]
+//   store()                    garner_fold's store hook for the output
+// Each block stages digit poly tt = (mask component tt / Td, limb tt % Td)
+// of ct in the third residue poly, free while the digits are transformed,
+// in natural order (16-byte loads, coalesced); forward() then gathers
+// V[sigma_src(i)] with sigma's sign: g^-1 is odd, so a warp's 32 gathers
+// hit 32 banks.  pending: as in the merge, this block has arrived at
+// "residues read" and not yet waited; the wait before the staging is also
+// the barrier after the previous step, whose output the cluster wrote.
+// pack_merge.cu keeps its own row loop of the same shape: run through this
+// function (its staging and base as hooks) the merge was slower on an H100
+// than with its own loop, at every shape timed.
+template <int kBlocks, class Step>
+__device__ __forceinline__ void trace_step(const Step& st, int Td, bool& pending,
+                                           uint32_t* smem, const FoldShape& sh,
+                                           const FheConsts& c, const FoldTables& tb) {
+  const int t = threadIdx.x;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int pi = rank % FHE_P, grp = rank / FHE_P;
+  const int c2_per = sh.C2 / (sh.cs / FHE_P);
+  const int T = sh.T, Lk = sh.Lk, L = sh.Lout;
+  uint32_t* spec = smem;                    // [T][16][256], thread-private words
+  uint32_t* R = smem + T * FOLD_N;          // [max(Lk, 3)][n] residues / exchange
+  int4* V = reinterpret_cast<int4*>(R + 2 * FOLD_N);   // the staged digit poly
+  const uint32_t p = prime(c, pi);
+  if (pending) {   // the cluster is done with R and has written in()
+    cluster_wait();
+    pending = false;
+  }
+  uint2 own0[4];   // j = t at stages 0-3
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    own0[s] = ldg_pair(tb.fwd + pi * FOLD_N + 4096 - (4096 >> s) + t);
+  const uint2 psi_t = ldg_pair(tb.psi_lo + pi * FOLD_THREADS + t);
+  for (int tt = 0; tt < T; ++tt) {
+    // every thread is past the previous forward's gathers: they precede its
+    // first barrier
+    const int4* src = reinterpret_cast<const int4*>(
+        st.in() + ((tt / Td) * L + tt % Td) * FOLD_N);
+#pragma unroll
+    for (int q = 0; q < FOLD_N / 4 / FOLD_THREADS; ++q)
+      V[t + q * FOLD_THREADS] = __ldcg(src + t + q * FOLD_THREADS);
+    __syncthreads();
+    const int* Vw = reinterpret_cast<const int*>(V);
+    const int ginv = st.ginv();
+    forward<kBlocks>(
+        [&](int i) {
+          bool neg;
+          const int v = Vw[sigma_src(i, ginv, FOLD_N, neg)];
+          return neg ? -v : v;
+        },
+        spec + tt * 16 * FOLD_THREADS, R, R + FOLD_N, own0, psi_t, p, tb, pi);
+  }
+  __syncthreads();   // the last exchange's reads are done: R is free
+
+  uint2 own2[4];   // j = t at stages 8-11
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    own2[s] = ldg_pair(tb.inv + pi * FOLD_N + (256 << s) - 1 + t);
+  const uint2 ipsi_t = ldg_pair(tb.ipsi_lo + pi * FOLD_THREADS + t);
+  for (int c2 = grp * c2_per; c2 < (grp + 1) * c2_per; ++c2) {
+    for (int lk = 0; lk < Lk; ++lk) {
+      uint32_t v[16];
+      products(v, spec, st.key(pi) + (long long)(c2 * Lk + lk) * FOLD_N, T,
+               (long long)sh.M * FOLD_N, p,
+               pi == 0 ? c.mu64[0] : pi == 1 ? c.mu64[1] : c.mu64[2]);
+      if (pending) {   // the previous component's residues are read
+        cluster_wait();
+        pending = false;
+      }
+      uint32_t* y = R + lk * FOLD_N;
+      inverse(v, lk + 1 < Lk ? y + FOLD_N : y, y, own2, ipsi_t, p, tb, pi);
+    }
+    cluster_arrive();   // every block's residues of component c2 are in
+    cluster_wait();
+    garner_fold(R, grp, pi, c2, TraceBase{st.in(), st.ginv(), sh.C2 - 1}, st.store(), sh,
+                c, tb);
+    cluster_arrive();   // done reading the cluster's residues, done writing
+    pending = true;     // this component of the output
   }
 }
 

@@ -132,8 +132,8 @@ pack_merge_kernel(const int* __restrict__ A, const int* __restrict__ B,
       cluster_arrive();   // every block's residues of component c2 are in
       cluster_wait();
       const long long row = (long long)(fresh(r) * row_polys) * FOLD_N;
-      garner_fold(R, grp, pi, c2, out + row, MergeBase{A + row, B + row, t_rot, ginv, sh.C2 - 1},
-                  sh, c, tb);
+      garner_fold(R, grp, pi, c2, MergeBase{A + row, B + row, t_rot, ginv, sh.C2 - 1},
+                  RowStore{out + row}, sh, c, tb);
       cluster_arrive();   // done reading the cluster's residues
       pending = true;
     }

@@ -26,8 +26,8 @@ csrc/fhe_core.cuh); their wrappers launch the variant of the context's body
 (ops/ntt.py) and count it under their own name, with "_two_pass" appended
 for the second body.  fold.cu (kernels 2 and 5) is built once: its
 transform is its own (three radix-16 passes in registers, fold_body.cuh,
-which pack_merge.cu shares), it serves both bodies' contexts with the same
-integers and counts under its own name.
+which pack_merge.cu, trace.cu and split.cu share), it serves both bodies'
+contexts with the same integers and counts under its own name.
 The other kernels have the radix-2 body only: a two-pass context routes
 around them (ops.ntt.fused_path_active).  Helpers that build the trace
 step, the split level and the pack merge from one fold (trace_step,
@@ -84,18 +84,18 @@ _MAX_OPS = 16     # FHE_MAX_OPS of csrc/dp_chain.cu, bitwise.cu: ops of a VM gro
 MAX_SHARDS = 16   # FHE_MAX_SHARDS of csrc/collective.cu: shards of a collective
 _MAX_SMEM = 232448  # bytes of shared memory one block can use on sm_90
 _SM_SMEM = 233472   # bytes of shared memory of an SM, 1 KB a block reserved
-# Rows up to which a launch of the fold_row kernels (trace, splits, trees,
-# VM chains) gives each row a cluster of 6 resp. 3 blocks
+# Rows up to which a launch of the fold_row kernels (trees, VM chains)
+# gives each row a cluster of 6 resp. 3 blocks
 # (timed on an H100 with tools/time_fold_chunks.py: at T = 2, M = 6 a
 # cluster of 6 wins up to 32 rows, of 3 up to 128, one block a row beyond).
 _ROWS_CLUSTER_6 = 32
 _ROWS_CLUSTER_3 = 128
-# The fold (csrc/fold.cu) and the merge on its body (pack_merge.cu) give
-# every row a cluster of 3 blocks, one a prime, or of 6 (the output
-# components shared by two groups of 3) up to this many rows;
-# tools/time_fold_predecessor.py times both.
+# The fold (csrc/fold.cu) and the kernels on its body (pack_merge.cu,
+# trace.cu, split.cu) give every row a cluster of 3 blocks, one a prime, or
+# of 6 (the output components shared by two groups of 3) up to this many
+# rows; tools/time_fold_predecessor.py times both.
 _FOLD_ROWS_6 = 32
-# Most clusters a fold or merge launch starts; with more rows than this
+# Most clusters a launch on the fold body starts; with more rows than this
 # each walks over several (the 2^24 level 0: 16,384 rows).
 _MAX_ROW_GROUPS = 1024
 _FOLD_MAX_LK = 8  # FOLD_MAX_LK of csrc/fold.cu: key limbs a fold takes
@@ -277,12 +277,12 @@ def build_kernels(verbose: bool = False):
                                _Consts, _FoldTables, vp],
         ("external", "fhe_external"): [vp, vp, vp, ci, _FoldShape, _Consts,
                                        _Tables, vp],
-        ("trace", "fhe_trace"): [vp, vp, vp, vp, vp, ci, _TraceSteps, ci,
-                                 _FoldShape, _Consts, _Tables, vp],
+        ("trace", "fhe_trace"): [vp, vp, vp, vp, ci, ci, _TraceSteps, ci, ci,
+                                 _FoldShape, _Consts, _FoldTables, vp],
         ("pack_merge", "fhe_pack_merge"): [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                            _FoldShape, _Consts, _FoldTables, vp],
-        ("split", "fhe_split"): [vp, vp, vp, vp, vp, ci, ci, ci, _FoldShape,
-                                 _Consts, _Tables, vp],
+        ("split", "fhe_split"): [vp, vp, vp, vp, ci, ci, ci, ci, ci, _FoldShape,
+                                 _Consts, _FoldTables, vp],
         ("split_tree", "fhe_split_tree_blocks"): [_FoldShape, ci, cip],
         ("split_tree", "fhe_split_tree"): [vp, vp, vp, vp, vp, vp, ci, ci,
                                            _TreeLevels, _FoldShape, _Consts,
@@ -565,10 +565,11 @@ _sm_count = {}
 
 
 def _fold_blocks(blocks_total: int, T: int, Lk: int, device) -> int:
-    """The instantiation of csrc/fold.cu (or pack_merge.cu, on the same body)
-    a launch of `blocks_total` blocks takes: 2 (128 registers a thread, two
-    blocks an SM) when the shape's shared memory, (T + Lk) polys a block,
-    lets two blocks share an SM and there are more blocks than SMs; else 1
+    """The instantiation of csrc/fold.cu (or of a kernel on the same body:
+    pack_merge.cu, trace.cu, split.cu) a launch of `blocks_total` blocks
+    takes: 2 (128 registers a thread, two blocks an SM) when the shape's
+    shared memory, (T + Lk) polys a block, lets two blocks share an SM and
+    there are more blocks than SMs; else 1
     (up to 255 registers: a launch that holds one block an SM anyway, or a
     short one, runs the single block faster)."""
     index = torch.device(device).index or 0
@@ -592,10 +593,21 @@ def _aligned16(t):
 
 def _fold_shape_arg(rows: int, T: int, M: int, c2: int, out_limbs: int,
                     sign: int) -> _FoldShape:
-    """csrc/fold.cu's and pack_merge.cu's shape argument (`mc` is not read
-    there)."""
+    """The shape argument of csrc/fold.cu and the kernels on its body (`mc`
+    is not read there)."""
     return _FoldShape(T, M, M // c2, out_limbs, c2, -1 if sign < 0 else 1, 0,
                       _fold_cs(rows, c2))
+
+
+def _staged_fold_polys(T: int, M: int, c2: int, what: str) -> int:
+    """Polys of shared memory a block of pack_merge.cu, trace.cu or split.cu
+    holds: the T spectra and max(Lk, 3) residue polys, the third doubling as
+    the staging buffer of a digit poly.  Raises where they do not fit."""
+    polys = T + max(M // c2, 3)
+    if M // c2 > _FOLD_MAX_LK or polys * 4 * 4096 > _MAX_SMEM:
+        raise ValueError(f"T = {T} digit polys and {M // c2} key limbs do not fit "
+                         f"the {what}'s shared memory")
+    return polys
 
 
 def _launch_fold(wrapper: str, ctx: NTTContext, x, keys_ntt, out_limbs: int,
@@ -805,7 +817,7 @@ def fused_trace(ctx: NTTContext, ct, keys_stacked, gal_els):
     M = C2*Lk); gal_els: the S galois elements.  Returns int32[B, C2, L, N]
     == the chain ct <- normalize(ct + KS(sigma_g(ct)))."""
     B, C2, L, n = ct.shape
-    S, P, T, M, n3 = keys_stacked.shape
+    S, _, T, M, n3 = keys_stacked.shape
     rank = C2 - 1
     if n != ctx.n or n3 != n or T % rank or M % C2 or T // rank > L:
         raise ValueError(f"ct {tuple(ct.shape)} does not fit keys {tuple(keys_stacked.shape)}")
@@ -814,23 +826,25 @@ def fused_trace(ctx: NTTContext, ct, keys_stacked, gal_els):
     _fold_limits(T, M, C2, L, n)
     if not _use_kernel(ctx, ct):
         return fused_trace_plain(ctx, ct, keys_stacked, gal_els)
-    ct = _require(ct, "ct")
-    keys_stacked = _require(keys_stacked, "keys_stacked")
+    polys = _staged_fold_polys(T, M, C2, "trace")
+    ct = _aligned16(_require(ct, "ct"))
+    keys_stacked = _aligned16(_require(keys_stacked, "keys_stacked"))
     out = torch.empty_like(ct)
     if B == 0:
         return out
     tmp = torch.empty_like(ct)
-    scratch = torch.empty((B, P, M, n), dtype=I32, device=ct.device)
     steps = _TraceSteps()
     steps.count = S
     for s, g in enumerate(gal_els):
         steps.ginv[s] = poly.auto_inverse(n, g)
-    sh = _fold_shape(B, T, M, C2, L, -1, n)
+    sh = _fold_shape_arg(B, T, M, C2, L, -1)
+    clusters = min(B, _MAX_ROW_GROUPS)
     with torch.cuda.device(ct.device):
         err = _lib("trace").fhe_trace(
             ct.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(),
-            tmp.data_ptr(), scratch.data_ptr(), B, steps, T // rank, sh,
-            _consts(ctx), _tables(ctx, ct.device), _stream())
+            tmp.data_ptr(), B, clusters, steps, T // rank,
+            _fold_blocks(clusters * sh.cs, T, polys - T, ct.device), sh,
+            _consts(ctx), _fold_tables(ctx, ct.device), _stream())
     _check(err, "fused_trace")
     LAUNCHES["fused_trace"] += 1
     return out
@@ -861,12 +875,7 @@ def fused_pack_merge(ctx: NTTContext, A, B, t_rot: int, g: int, key_ntt):
     _fold_limits(T, M, C2, L, n)
     if not _use_kernel(ctx, A):
         return fused_pack_merge_plain(ctx, A, B, t_rot, g, key_ntt)
-    # csrc/pack_merge.cu keeps the T spectra and max(Lk, 3) residue polys
-    # (the third doubles as the staging buffer of v) in shared memory
-    polys = T + max(M // C2, 3)
-    if M // C2 > _FOLD_MAX_LK or polys * 4 * n > _MAX_SMEM:
-        raise ValueError(f"T = {T} digit polys and {M // C2} key limbs do not fit "
-                         "the merge's shared memory")
+    polys = _staged_fold_polys(T, M, C2, "merge")
     A = _require(A, "A")
     B = _require(B, "B")
     key_ntt = _aligned16(_require(key_ntt, "key_ntt"))
@@ -905,25 +914,27 @@ def fused_split(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
     T = rank*L (the full gadget) and M = C2*Lk.  Returns (child0, child1),
     each int32[nb, C2, L, N]."""
     nb, C2, L, n = ct.shape
-    P, T, M, n3 = key_ntt.shape
+    _, T, M, n3 = key_ntt.shape
     rank = C2 - 1
     if n != ctx.n or n3 != n or T != rank * L or M % C2:
         raise ValueError(f"ct {tuple(ct.shape)} does not fit key {tuple(key_ntt.shape)}")
     _fold_limits(T, M, C2, L, n)
     if not _use_kernel(ctx, ct):
         return fused_split_plain(ctx, ct, t_rot, g, key_ntt)
-    ct = _require(ct, "ct")
-    key_ntt = _require(key_ntt, "key_ntt")
+    polys = _staged_fold_polys(T, M, C2, "split")
+    ct = _aligned16(_require(ct, "ct"))
+    key_ntt = _aligned16(_require(key_ntt, "key_ntt"))
     out0, out1 = torch.empty_like(ct), torch.empty_like(ct)
     if nb == 0:
         return out0, out1
-    scratch = torch.empty((nb, P, M, n), dtype=I32, device=ct.device)
-    sh = _fold_shape(nb, T, M, C2, L, -1, n)
+    sh = _fold_shape_arg(nb, T, M, C2, L, -1)
+    clusters = min(nb, _MAX_ROW_GROUPS)
     with torch.cuda.device(ct.device):
         err = _lib("split").fhe_split(
             ct.data_ptr(), key_ntt.data_ptr(), out0.data_ptr(), out1.data_ptr(),
-            scratch.data_ptr(), nb, -t_rot % (2 * n), poly.auto_inverse(n, g),
-            sh, _consts(ctx), _tables(ctx, ct.device), _stream())
+            nb, clusters, -t_rot % (2 * n), poly.auto_inverse(n, g),
+            _fold_blocks(clusters * sh.cs, T, polys - T, ct.device), sh,
+            _consts(ctx), _fold_tables(ctx, ct.device), _stream())
     _check(err, "fused_split")
     LAUNCHES["fused_split"] += 1
     return out0, out1

@@ -7,13 +7,17 @@
 For each (mc, cs) -- output polys per inverse-transform pass, blocks per
 row (1, or a thread block cluster of 3 or 6) -- it times, at the shapes of
 one read at PARAMS_2_18_TURBO_READOPT: the 12-step trace at B = 4 and a
-merge level at nb = 128 ... 4.  Every setting's outputs are held bit-equal
-to the first setting's.  Times are medians of 9 launches by CUDA events,
-the L2 cache overwritten before each.  One JSON line per setting; the first
-and last settings repeat so that drift within the run shows.  The
-thresholds `_ROWS_CLUSTER_6/_3` and `mc = 3` in ops/ntt_cuda.py were read
-off this script's output (the fold, csrc/fold.cu, has its own launch
-shape: tools/time_fold_predecessor.py times it).
+merge level at nb = 128 ... 4, both as fold_row runs them, in the
+predecessors of kernels 3 and 4 (tools/trace_predecessor.cu,
+tools/pack_merge_predecessor.cu; kernels 7-11 still run fold_row).  Every
+setting's outputs are held bit-equal to the first setting's.  Times are
+medians of 9 launches by CUDA events, the L2 cache overwritten before
+each.  One JSON line per setting; the first and last settings repeat so
+that drift within the run shows.  The thresholds `_ROWS_CLUSTER_6/_3` and
+`mc = 3` in ops/ntt_cuda.py were read off this script's output (the fold,
+csrc/fold.cu, and the kernels on its body have their own launch shape:
+tools/time_fold_predecessor.py, time_merge_ring_predecessors.py and
+time_trace_split_predecessors.py time them).
 """
 
 import json
@@ -25,6 +29,10 @@ from pathlib import Path
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import time_merge_ring_predecessors as merge_tool  # noqa: E402
+import time_trace_split_predecessors as trace_tool  # noqa: E402
 
 from fhe_ram_tpu_torch.params import PARAMS_2_18_TURBO_READOPT as PAR  # noqa: E402
 from fhe_ram_tpu_torch.ops import ntt_cuda  # noqa: E402
@@ -72,14 +80,18 @@ def main():
     pairs = {nb: (limbs((nb, 2, 3, n), 17), limbs((nb, 2, 3, n), 17))
              for nb in (128, 64, 32, 16, 8, 4)}
 
-    calls = {"trace": lambda: ntt_cuda.fused_trace(ctx, ct4, keys_tr, gals)}
-    for nb, (A, B) in pairs.items():
-        calls[f"merge{nb}"] = (
-            lambda A=A, B=B: ntt_cuda.fused_pack_merge(ctx, A, B, 32, 129, key_pm))
+    ntt_cuda.ensure_built()
+    trace_fn = trace_tool.build()["trace"]
+    merge_fn = merge_tool.build()["merge"]
 
     first = {}
     for mc, cs in SETTINGS:
         ntt_cuda.SHAPE_OVERRIDE = (mc, cs)
+        # the launch shapes are read when a launch is made
+        calls = {"trace": trace_tool.trace_predecessor(trace_fn, ctx, ct4, keys_tr, gals)}
+        for nb, (A, B) in pairs.items():
+            calls[f"merge{nb}"] = merge_tool.merge_predecessor(merge_fn, ctx, A, B, 32,
+                                                               129, key_pm)
         rec = {"mc": mc, "cs": cs}
         for name, fn in calls.items():
             out = fn()
