@@ -1,15 +1,18 @@
 // The fold body of csrc/fold.cu, shared by the kernels built on it: the
 // fold (kernels 2 and 5, fold.cu), the pack merge (kernel 4,
-// pack_merge.cu), the trace chain (kernel 3, trace.cu) and the split level
-// (kernel 6, split.cu).  fold.cu's note sets out the design; this header
-// holds its device functions: the Shoup and lazy arithmetic, the three
-// register layouts and the swizzle of the exchange buffers, the radix-16
-// transforms (`forward` takes a loader of the digit poly's coefficients,
-// `inverse`), the key products, the Garner and the Garner/fold/carry step
-// over distributed shared memory (`garner_fold` takes the base to add
-// and what to do with each normalized limb as functors), one trace step of
-// a row (`trace_step`, which kernels 3 and 6 share), and the cluster
-// launch.
+// pack_merge.cu), the trace chain (kernel 3, trace.cu), the split level
+// (kernel 6, split.cu), the blind rotation (kernel 10, blind_rotate.cu)
+// and the carry-DP chain (kernel 11, dp_chain.cu).  fold.cu's note sets
+// out the design; this header holds its device functions: the Shoup and
+// lazy arithmetic, the three register layouts and the swizzle of the
+// exchange buffers, the radix-16 transforms (`forward` takes a loader of
+// the digit poly's coefficients, `inverse`), the key products, the Garner
+// and the Garner/fold/carry step over distributed shared memory
+// (`garner_fold` takes the base to add and what to do with each normalized
+// limb as functors), one trace step of a row (`trace_step`, which kernels
+// 3 and 6 share), one CMux step of a row (`cmux_step`, which kernels 10
+// and 11 share), a barrier over the clusters of a co-resident launch
+// (`OpBarrier`), and the cluster launches.
 #pragma once
 
 #include "fhe_core.cuh"
@@ -446,11 +449,140 @@ __device__ __forceinline__ void trace_step(const Step& st, int Td, bool& pending
   }
 }
 
+// The base of a CMux: lo, a row [C2, L, n] read through L2 (another
+// cluster, or this one in an earlier step, may have written it).
+struct RowBase {
+  const int* lo;
+  __device__ __forceinline__ int operator()(int, int, int, long long at) const {
+    return __ldcg(lo + at);
+  }
+};
+
+// One CMux step on a row, this block's part of it:
+//   normalize(lo + (hi - lo)[:Td] x GGSW),
+// the digits the top Td limbs of EVERY component of hi - lo (T = C2 * Td),
+// no automorphism, sign +1.  st supplies, each made where it is used (held
+// across the transforms, pointers spill at 128 registers):
+//   digits(tt)                  digit poly tt = (component tt / Td, limb
+//                               tt % Td) of hi - lo, in two parts:
+//                               unit(q), 16-byte unit q of a poly to stage,
+//                               formed on loads through L2; and dg(V, i),
+//                               the digit at i from the staged words V
+//   base()                      garner_fold's base hook: lo (RowBase, or lo
+//                               formed on the loads)
+//   const uint32_t* key(pi)     prime pi's key rows, uint32[T, M, n]
+//   store()                     garner_fold's store hook for the output
+// Each block stages the poly of digit tt in the third residue poly, free
+// while the digits are transformed, in natural order (thread t the units t
+// + 256 q: 16-byte loads, coalesced), then forward() reads its words: at
+// i = t | r << 8 and at shifts of it, 32 banks a warp.  On an H100 this
+// ran faster, for both kernels at every VM shape, than forming each
+// coefficient on L2 loads in forward(), and spilled nothing at 128
+// registers where that did.
+// Shared memory: the T spectra and max(Lk, 3) residue polys.  pending: as
+// in trace_step; the wait before the first staging is also the barrier
+// after the previous step, whose output the cluster wrote.  Kept apart from
+// trace_step: the merge run through one hook-generalised row step was
+// slower on an H100.
+template <int kBlocks, class Step>
+__device__ __forceinline__ void cmux_step(const Step& st, bool& pending, uint32_t* smem,
+                                          const FoldShape& sh, const FheConsts& c,
+                                          const FoldTables& tb) {
+  const int t = threadIdx.x;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int pi = rank % FHE_P, grp = rank / FHE_P;
+  const int c2_per = sh.C2 / (sh.cs / FHE_P);
+  const int T = sh.T, Lk = sh.Lk;
+  uint32_t* spec = smem;                    // [T][16][256], thread-private words
+  uint32_t* R = smem + T * FOLD_N;          // [max(Lk, 3)][n] residues / exchange
+  int4* V = reinterpret_cast<int4*>(R + 2 * FOLD_N);   // the staged poly
+  const uint32_t p = prime(c, pi);
+  if (pending) {   // the cluster is done with R and has written the step's input
+    cluster_wait();
+    pending = false;
+  }
+  uint2 own0[4];   // j = t at stages 0-3
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    own0[s] = ldg_pair(tb.fwd + pi * FOLD_N + 4096 - (4096 >> s) + t);
+  const uint2 psi_t = ldg_pair(tb.psi_lo + pi * FOLD_THREADS + t);
+  for (int tt = 0; tt < T; ++tt) {
+    // every thread is past the previous forward's reads of V: they precede
+    // its first barrier
+    const auto dg = st.digits(tt);
+#pragma unroll
+    for (int q = 0; q < FOLD_N / 4 / FOLD_THREADS; ++q)
+      V[t + q * FOLD_THREADS] = dg.unit(t + q * FOLD_THREADS);
+    __syncthreads();
+    const int* Vw = reinterpret_cast<const int*>(V);
+    forward<kBlocks>([&](int i) { return dg(Vw, i); }, spec + tt * 16 * FOLD_THREADS, R,
+                     R + FOLD_N, own0, psi_t, p, tb, pi);
+  }
+  __syncthreads();   // the last exchange's reads are done: R is free
+
+  uint2 own2[4];   // j = t at stages 8-11
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    own2[s] = ldg_pair(tb.inv + pi * FOLD_N + (256 << s) - 1 + t);
+  const uint2 ipsi_t = ldg_pair(tb.ipsi_lo + pi * FOLD_THREADS + t);
+  for (int c2 = grp * c2_per; c2 < (grp + 1) * c2_per; ++c2) {
+    for (int lk = 0; lk < Lk; ++lk) {
+      uint32_t v[16];
+      products(v, spec, st.key(pi) + (long long)(c2 * Lk + lk) * FOLD_N, T,
+               (long long)sh.M * FOLD_N, p,
+               pi == 0 ? c.mu64[0] : pi == 1 ? c.mu64[1] : c.mu64[2]);
+      if (pending) {   // the previous component's residues are read
+        cluster_wait();
+        pending = false;
+      }
+      uint32_t* y = R + lk * FOLD_N;
+      inverse(v, lk + 1 < Lk ? y + FOLD_N : y, y, own2, ipsi_t, p, tb, pi);
+    }
+    cluster_arrive();   // every block's residues of component c2 are in
+    cluster_wait();
+    garner_fold(R, grp, pi, c2, st.base(), st.store(), sh, c, tb);
+    cluster_arrive();   // done reading the cluster's residues, done writing
+    pending = true;     // this component of the output
+  }
+}
+
+// A barrier over `blocks` blocks of a launch whose blocks are all resident
+// at once (a cooperative launch), after which what any of them stored
+// before it is visible, through L2 (__ldcg), to all of them: a counter in
+// device memory, zero at launch and used by these blocks alone; every
+// block adds one and waits until `blocks` more have arrived than at its
+// last barrier.  A block that has arrived at a cluster barrier waits it
+// first (`pending`).  A spin that outlasts 2^24 polls (seconds, where a
+// CMux phase takes tens of microseconds) traps: blocks that are not all
+// resident fail the launch instead of hanging the card.
+struct OpBarrier {
+  unsigned* arrived;
+  unsigned target;
+  __device__ __forceinline__ void sync(int blocks, bool& pending) {
+    if (pending) {
+      cluster_wait();
+      pending = false;
+    }
+    __syncthreads();
+    target += blocks;
+    if (threadIdx.x == 0) {
+      __threadfence();
+      cuda::atomic_ref<unsigned, cuda::thread_scope_device> count(*arrived);
+      count.fetch_add(1u, cuda::memory_order_release);
+      unsigned polls = 0;
+      while (count.load(cuda::memory_order_acquire) < target)
+        if (++polls == (1u << 24)) __trap();
+    }
+    __syncthreads();
+  }
+};
+
 // Launch `kernel` as `clusters` thread block clusters of cs blocks of
-// FOLD_THREADS threads with `smem` bytes of dynamic shared memory each.
+// FOLD_THREADS threads with `smem` bytes of dynamic shared memory each;
+// cooperative: all blocks resident at once, or the launch fails.
 template <class... Params, class... Args>
-static int launch_clusters(void (*kernel)(Params...), int clusters, int cs, size_t smem,
-                           void* stream, Args... args) {
+static int launch_clusters_as(bool cooperative, void (*kernel)(Params...), int clusters,
+                              int cs, size_t smem, void* stream, Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -459,6 +591,38 @@ static int launch_clusters(void (*kernel)(Params...), int clusters, int cs, size
   cfg.blockDim = dim3(FOLD_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cooperative ? 2 : 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <class... Params, class... Args>
+static int launch_clusters(void (*kernel)(Params...), int clusters, int cs, size_t smem,
+                           void* stream, Args... args) {
+  return launch_clusters_as(false, kernel, clusters, cs, smem, stream, args...);
+}
+
+// The most clusters of cs blocks of `kernel` with `smem` bytes of dynamic
+// shared memory each that the current device holds at once.
+template <class... Params>
+static int max_active_clusters(void (*kernel)(Params...), int cs, size_t smem,
+                               int* clusters) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cs);
+  cfg.blockDim = dim3(FOLD_THREADS);
+  cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;
@@ -466,7 +630,5 @@ static int launch_clusters(void (*kernel)(Params...), int clusters, int cs, size
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel, &cfg);
 }

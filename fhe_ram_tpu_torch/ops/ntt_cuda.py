@@ -26,8 +26,9 @@ csrc/fhe_core.cuh); their wrappers launch the variant of the context's body
 (ops/ntt.py) and count it under their own name, with "_two_pass" appended
 for the second body.  fold.cu (kernels 2 and 5) is built once: its
 transform is its own (three radix-16 passes in registers, fold_body.cuh,
-which pack_merge.cu, trace.cu and split.cu share), it serves both bodies'
-contexts with the same integers and counts under its own name.
+which pack_merge.cu, trace.cu, split.cu, blind_rotate.cu and dp_chain.cu
+share), it serves both bodies' contexts with the same integers and counts
+under its own name.
 The other kernels have the radix-2 body only: a two-pass context routes
 around them (ops.ntt.fused_path_active).  Helpers that build the trace
 step, the split level and the pack merge from one fold (trace_step,
@@ -84,14 +85,15 @@ _MAX_OPS = 16     # FHE_MAX_OPS of csrc/dp_chain.cu, bitwise.cu: ops of a VM gro
 MAX_SHARDS = 16   # FHE_MAX_SHARDS of csrc/collective.cu: shards of a collective
 _MAX_SMEM = 232448  # bytes of shared memory one block can use on sm_90
 _SM_SMEM = 233472   # bytes of shared memory of an SM, 1 KB a block reserved
-# Rows up to which a launch of the fold_row kernels (trees, VM chains)
+# Rows up to which a launch of the fold_row kernels (trees, bitwise group)
 # gives each row a cluster of 6 resp. 3 blocks
 # (timed on an H100 with tools/time_fold_chunks.py: at T = 2, M = 6 a
 # cluster of 6 wins up to 32 rows, of 3 up to 128, one block a row beyond).
 _ROWS_CLUSTER_6 = 32
 _ROWS_CLUSTER_3 = 128
 # The fold (csrc/fold.cu) and the kernels on its body (pack_merge.cu,
-# trace.cu, split.cu) give every row a cluster of 3 blocks, one a prime, or
+# trace.cu, split.cu, blind_rotate.cu, dp_chain.cu) give every row a
+# cluster of 3 blocks, one a prime, or
 # of 6 (the output components shared by two groups of 3) up to this many
 # rows; tools/time_fold_predecessor.py times both.
 _FOLD_ROWS_6 = 32
@@ -291,13 +293,13 @@ def build_kernels(verbose: bool = False):
         ("pack_tree", "fhe_pack_tree"): [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                          _TreeLevels, _FoldShape, _Consts,
                                          _Tables, vp],
-        ("blind_rotate", "fhe_blind_rotate"): [vp, vp, vp, vp, vp, ci, ci,
-                                               _RotSteps, ci, _FoldShape,
-                                               _Consts, _Tables, vp],
-        ("dp_chain", "fhe_dp_chain_blocks"): [_FoldShape, ci, cip],
-        ("dp_chain", "fhe_dp_chain"): [vp, vp, vp, vp, vp, vp, vp, ci, _DpTables,
-                                       ci, ci, ci, _FoldShape, _Consts, _Tables,
-                                       vp],
+        ("blind_rotate", "fhe_blind_rotate"): [vp, vp, vp, vp, ci, ci, _RotSteps,
+                                               ci, ci, _FoldShape, _Consts,
+                                               _FoldTables, vp],
+        ("dp_chain", "fhe_dp_chain_clusters"): [_FoldShape, ci, cip],
+        ("dp_chain", "fhe_dp_chain"): [vp, vp, vp, vp, vp, vp, ci, _DpTables, ci,
+                                       ci, ci, ci, _FoldShape, _Consts,
+                                       _FoldTables, vp],
         ("bitwise", "fhe_bitwise_blocks"): [_FoldShape, ci, cip],
         ("bitwise", "fhe_bitwise"): [vp, vp, vp, vp, vp, vp, vp, ci, _OpGroups,
                                      ci, ci, ci, _FoldShape, _Consts, _Tables, vp],
@@ -566,7 +568,8 @@ _sm_count = {}
 
 def _fold_blocks(blocks_total: int, T: int, Lk: int, device) -> int:
     """The instantiation of csrc/fold.cu (or of a kernel on the same body:
-    pack_merge.cu, trace.cu, split.cu) a launch of `blocks_total` blocks
+    pack_merge.cu, trace.cu, split.cu, blind_rotate.cu, dp_chain.cu) a
+    launch of `blocks_total` blocks
     takes: 2 (128 registers a thread, two blocks an SM) when the shape's
     shared memory, (T + Lk) polys a block, lets two blocks share an SM and
     there are more blocks than SMs; else 1
@@ -586,8 +589,8 @@ def _fold_tables(ctx: NTTContext, device) -> _FoldTables:
 
 
 def _aligned16(t):
-    """t, or a copy of it whose data starts on 16 bytes (the fold loads
-    keys and spectra 16 bytes at a time)."""
+    """t, or a copy of it whose data starts on 16 bytes (the kernels on the
+    fold body load keys, spectra and staged rows 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -600,9 +603,10 @@ def _fold_shape_arg(rows: int, T: int, M: int, c2: int, out_limbs: int,
 
 
 def _staged_fold_polys(T: int, M: int, c2: int, what: str) -> int:
-    """Polys of shared memory a block of pack_merge.cu, trace.cu or split.cu
-    holds: the T spectra and max(Lk, 3) residue polys, the third doubling as
-    the staging buffer of a digit poly.  Raises where they do not fit."""
+    """Polys of shared memory a block of pack_merge.cu, trace.cu, split.cu,
+    blind_rotate.cu or dp_chain.cu holds: the T spectra and max(Lk, 3)
+    residue polys, the third doubling as the staging buffer of a digit
+    poly.  Raises where they do not fit."""
     polys = T + max(M // c2, 3)
     if M // c2 > _FOLD_MAX_LK or polys * 4 * 4096 > _MAX_SMEM:
         raise ValueError(f"T = {T} digit polys and {M // c2} key limbs do not fit "
@@ -944,7 +948,10 @@ def fused_split(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
 # kernels 7 and 8: the one-launch split tree and pack tree
 # --------------------------------------------------------------------------
 
-_resident = {}   # (source, T, mc, log_n, device index) -> co-resident blocks
+# occupancy queries: (source, T, mc, log_n, device index) -> co-resident
+# blocks of a tree or the bitwise group; ("dp_chain", cs, blocks, polys,
+# device index) -> co-resident clusters of the carry chain
+_resident = {}
 
 
 def _cooperative_shape(source: str, T: int, M: int, C2: int, L: int, sign: int,
@@ -1165,25 +1172,25 @@ def fused_blind_rotate(ctx: NTTContext, rows, keys_stacked, amounts):
         raise ValueError(f"keys_stacked lies on {keys_stacked.device}, rows on {rows.device}")
     if not _use_kernel(ctx, rows):
         return fused_blind_rotate_plain(ctx, rows, keys_stacked, amounts)
-    rows = _require(rows, "rows")
-    keys_stacked = _require(keys_stacked, "keys_stacked")
+    polys = _staged_fold_polys(T, M, C2, "blind rotation")
+    rows = _aligned16(_require(rows, "rows"))
+    keys_stacked = _aligned16(_require(keys_stacked, "keys_stacked"))
     out = torch.empty_like(rows)
     if B == 0:
         return out
     tmp = torch.empty_like(rows)
-    groups = min(B, _MAX_ROW_GROUPS)
-    scratch = torch.empty((groups, len(ctx.primes), M, n), dtype=I32,
-                          device=rows.device)
     steps = _RotSteps()
     steps.count = S
     for s, t in enumerate(amounts):
         steps.rot[s] = int(t) % (2 * n)
-    sh = _fold_shape(B, T, M, C2, L, 1, n)
+    sh = _fold_shape_arg(B, T, M, C2, L, 1)
+    clusters = min(B, _MAX_ROW_GROUPS)
     with torch.cuda.device(rows.device):
         err = _lib("blind_rotate").fhe_blind_rotate(
-            rows.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(),
-            tmp.data_ptr(), scratch.data_ptr(), B, groups, steps, Td, sh,
-            _consts(ctx), _tables(ctx, rows.device), _stream())
+            rows.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+            B, clusters, steps, Td,
+            _fold_blocks(clusters * sh.cs, T, polys - T, rows.device), sh,
+            _consts(ctx), _fold_tables(ctx, rows.device), _stream())
     _check(err, "fused_blind_rotate")
     LAUNCHES["fused_blind_rotate"] += 1
     return out
@@ -1267,7 +1274,7 @@ def fused_dp_chain(ctx: NTTContext, F0, keys_stacked, deltas, op_tables, groups)
     bits = keys_stacked.shape[0]
     of = _op_groups(groups, G)
     NG = len(groups)
-    Td, T, M = _chain_keys(keys_stacked, 2, C2, L, n, ctx)
+    _chain_keys(keys_stacked, 2, C2, L, n, ctx)
     if (two != 2 or keys_stacked.shape[1] != NG + 1 or len(op_tables) != G
             or tuple(deltas.shape) != (bits, C2, L, n) or bits < 1):
         raise ValueError(f"F0 {tuple(F0.shape)}, keys {tuple(keys_stacked.shape)}, "
@@ -1279,35 +1286,65 @@ def fused_dp_chain(ctx: NTTContext, F0, keys_stacked, deltas, op_tables, groups)
     if not _use_kernel(ctx, F0):
         return fused_dp_chain_plain(ctx, F0, keys_stacked, deltas, op_tables,
                                     groups)
-    F0 = _require(F0, "F0")
-    keys_stacked = _require(keys_stacked, "keys_stacked")
-    deltas = _require(deltas, "deltas")
+    out = _launch_dp_chain(ctx, F0, keys_stacked, deltas, _dp_tables(op_tables, of))
+    LAUNCHES["fused_dp_chain"] += 1
+    return out
+
+
+def _dp_tables(op_tables, of) -> _DpTables:
+    """csrc/dp_chain.cu's table: each op's source group and its leaf rows'
+    codes co0 | co1 << 1 | ob0 << 2 | ob1 << 3, later steps then the first."""
     tab = _DpTables()
-    tab.count = G
-    for g in range(G):
-        tab.group[g] = of[g]
+    tab.count = len(of)
+    for g, grp in enumerate(of):
+        tab.group[g] = grp
         for first in (0, 1):
             for r, (co0, co1, ob0, ob1) in enumerate(
                     dp_leaf_rows(*op_tables[g], bool(first))):
                 tab.leaf[(g * 2 + first) * 4 + r] = co0 | co1 << 1 | ob0 << 2 | ob1 << 3
-    sh, resident = _cooperative_shape("dp_chain", T, M, C2, L, 1, n, F0.device)
-    cs = next(c for c in (_row_blocks(4 * G, M), 3, 1) if 4 * c <= resident)
-    groups_ = min(G, resident // (4 * cs))
-    sh.cs = cs
-    blocks = groups_ * 4 * cs
+    return tab
+
+
+def _launch_dp_chain(ctx: NTTContext, F0, keys_stacked, deltas, tab: _DpTables,
+                     cs: int | None = None, blocks: int | None = None):
+    """One launch of csrc/dp_chain.cu on checked CUDA arguments, not counted
+    (`fused_dp_chain` counts it).  The layout: four clusters an op (its four
+    b-phase rows), cs blocks a cluster (_fold_cs of the 4 G rows), the
+    instantiation `blocks` (_fold_blocks of the 4 G cs blocks), as many ops
+    in flight as the card holds at once; cs and blocks given here override
+    the choice (tools/time_chain_predecessors.py times the others).  Raises
+    where one op's four clusters do not fit the card."""
+    G, _, C2, L, n = F0.shape
+    bits, NG1, _, T, M, _ = keys_stacked.shape
+    polys = _staged_fold_polys(T, M, C2, "carry chain")
+    F0 = _aligned16(_require(F0, "F0"))
+    keys_stacked = _aligned16(_require(keys_stacked, "keys_stacked"))
+    deltas = _aligned16(_require(deltas, "deltas"))
+    sh = _fold_shape_arg(4 * G, T, M, C2, L, 1)
+    if cs is not None:
+        sh.cs = cs
+    if blocks is None:
+        blocks = _fold_blocks(4 * G * sh.cs, T, polys - T, F0.device)
+    key = ("dp_chain", sh.cs, blocks, polys, torch.device(F0.device).index)
+    if key not in _resident:
+        clusters = ctypes.c_int(0)
+        with torch.cuda.device(F0.device):
+            err = _lib("dp_chain").fhe_dp_chain_clusters(sh, blocks, ctypes.byref(clusters))
+        _check(err, "the occupancy query of dp_chain")
+        _resident[key] = clusters.value
+    groups_ = min(G, _resident[key] // 4)
+    if groups_ < 1:
+        raise RuntimeError(f"dp_chain: an op takes 4 clusters of {sh.cs} blocks, the "
+                           f"device holds {_resident[key]} at once")
     out = torch.empty_like(F0)
     inner = torch.empty((G, 4, C2, L, n), dtype=I32, device=F0.device)
-    scratch = torch.empty((blocks // cs, len(ctx.primes), M, n), dtype=I32,
-                          device=F0.device)
-    arrived = torch.zeros((groups_, 5), dtype=I32, device=F0.device)
+    arrived = torch.zeros((groups_,), dtype=I32, device=F0.device)
     with torch.cuda.device(F0.device):
         err = _lib("dp_chain").fhe_dp_chain(
-            F0.data_ptr(), keys_stacked.data_ptr(), deltas.data_ptr(),
-            out.data_ptr(), inner.data_ptr(), scratch.data_ptr(),
-            arrived.data_ptr(), blocks, tab, bits, NG, Td, sh, _consts(ctx),
-            _tables(ctx, F0.device), _stream())
+            F0.data_ptr(), keys_stacked.data_ptr(), deltas.data_ptr(), out.data_ptr(),
+            inner.data_ptr(), arrived.data_ptr(), groups_, tab, bits, NG1 - 1,
+            T // C2, blocks, sh, _consts(ctx), _fold_tables(ctx, F0.device), _stream())
     _check(err, "fused_dp_chain")
-    LAUNCHES["fused_dp_chain"] += 1
     return out
 
 
