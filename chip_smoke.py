@@ -26,7 +26,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  (on that body too) at a read's, a write's and a batch's
                  shapes, the split up to the per-level batched RMW's last
                  level (2048 rows); kernel 12 (on no path) also folded and
-                 held against kernel 2
+                 held against kernel 2; kernels 7 and 9 also bit-equal to
+                 their predecessors (fhe_ram_tpu_torch/tools/), timed beside
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -297,9 +298,11 @@ def vm_shapes(par, vctx, limbs):
         keys = keys_of((bits, NG + 1), T, M)
         key_bytes = poly_b * bits * (NG + 1) * P * T * M
         if kind == "fused_bitwise":
+            # the 2G leaf rows' digits are transformed once for all bits
             args = (limbs((G, 2, C2, L, n)), limbs((G, 2, C2, L, n)), keys, groups)
             work = (key_bytes + poly_b * (4 * G + bits * G) * C2 * L,
-                    fold_ops(bits * 3 * G, T, M, n))
+                    fold_ops(bits * G, T, M, n) + 2 * G * P * T * ntt_ops(n)
+                    + fold_ops(2 * bits * G, T, M, n, spectral=True))
         else:
             tabs = tuple(arithmetic._DP_SPECS[op][:3] for op in ops)
             args = (limbs((G, 2, C2, L, n)), keys, limbs((bits, C2, L, n)), tabs,
@@ -386,11 +389,21 @@ def main():
           "cuda": torch.version.cuda})
 
     # ---- build -------------------------------------------------------------
+    # the predecessors of kernels 7 and 9 (fhe_ram_tpu_torch/tools/), held
+    # bit-equal to them below, build beside the kernels, each nvcc started
+    # before the first is awaited
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "fhe_ram_tpu_torch", "tools"))
+    import time_bitwise_split_tree_predecessors as preds
     t0 = time.time()
+    pred_jobs = preds.start()
     ntt_cuda.ensure_built(verbose=args.verbose_build)
+    pred = preds.finish(pred_jobs)
     emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 2),
           "sources": [f"fhe_ram_tpu_torch/csrc/{s}.cu" for s in ntt_cuda.SOURCES],
           "built_for_both_bodies": list(ntt_cuda.BODY_SOURCES),
+          "predecessors": [f"fhe_ram_tpu_torch/tools/{src}"
+                           for src, _ in preds.SPECS.values()],
           "target": "sm_90a"})
 
     # ---- each kernel against its plain version, at the read's shapes -------
@@ -419,7 +432,8 @@ def main():
     poly_b = 4 * n  # bytes of one int32 polynomial
 
     def check(name, shape_note, kernel_fn, reps=7, plain_reps=3,
-              per_level_fn=None, work=None, library_fn=None, same_as=None):
+              per_level_fn=None, work=None, library_fn=None, same_as=None,
+              predecessor_fn=None):
         """Run kernel and plain version on the same tensors; compare; time.
         kernel_fn returns one tensor or a tuple of them.  per_level_fn: the
         same function as a sequence of per-level kernel launches (a tree
@@ -427,7 +441,9 @@ def main():
         moved, operations) of this shape, for its bound beside its time.
         library_fn: one PyTorch call that computes the same function, timed
         beside it (never used by the port).  same_as: the same call in the
-        other transform body, held bit-equal (spectra included)."""
+        other transform body, held bit-equal (spectra included).
+        predecessor_fn: the same call through the kernel's predecessor
+        (fhe_ram_tpu_torch/tools/), held bit-equal and timed."""
         def outputs(fn):
             out = fn()
             torch.cuda.synchronize()
@@ -456,6 +472,11 @@ def main():
             ok = ok and all(torch.equal(a, b) for a, b in zip(got, levels))
             del levels
             rec.update(ok=ok, per_level_ms=time_ms(per_level_fn, reps, 2, flush))
+        if predecessor_fn is not None:
+            rec["equal_to_predecessor"] = all(
+                torch.equal(a, b) for a, b in zip(got, outputs(predecessor_fn)))
+            ok = rec["ok"] = ok and rec["equal_to_predecessor"]
+            rec["predecessor_ms"] = time_ms(predecessor_fn, reps, 2, flush)
         if same_as is not None:
             rec["equal_to_radix2"] = all(
                 torch.equal(a, b) for a, b in zip(got, outputs(same_as)))
@@ -753,7 +774,9 @@ def main():
               f"ct[{nb},{C},{L},4096] keys[{S_},3,{T_kf},{M_kf},4096]",
               lambda: ntt_cuda.fused_split_tree(ctx, ct_s, gals[:S_], keys_st[:S_]),
               plain_reps=1,
-              per_level_fn=lambda: split_levels(ct_s, keys_st, S_))
+              per_level_fn=lambda: split_levels(ct_s, keys_st, S_),
+              predecessor_fn=preds.split_tree_predecessor(
+                  pred["split_tree"], ctx, ct_s, gals[:S_], keys_st[:S_].contiguous()))
     del ct_s
     keys_pt = spectra((5, T_kf, M_kf, n)).permute(1, 0, 2, 3, 4).contiguous()
     for nb, M_ in ((W, M_PT), (NB_RMW * W, M_PT), (3, 2)):
@@ -772,7 +795,9 @@ def main():
     vctx = get_ntt_context(VPAR.n, VPAR.primes)
     for name, shape, inputs, work in vm_shapes(VPAR, vctx, limbs):
         fn = vm_call(vctx, name, inputs)
-        check(name, shape, fn, plain_reps=1, work=work)
+        check(name, shape, fn, plain_reps=1, work=work,
+              predecessor_fn=preds.bitwise_predecessor(pred["bitwise"], vctx, *inputs)
+              if name == "fused_bitwise" else None)
         del fn
     del inputs
 
@@ -2011,8 +2036,9 @@ def main():
                    * sum(c_ * (r["ms"] - r["bound_ms"]) for r in checks[name]
                          for s_, c_ in seen[name].items() if r["shape"] == s_)
                    if name in VM_KERNELS else total_launches[name] * (rec["ms"] - b_ms))}
-        if "per_level_ms" in rec:
-            out["per_level_ms"] = rec["per_level_ms"]
+        for k_ in ("per_level_ms", "predecessor_ms"):
+            if k_ in rec:
+                out[k_] = rec[k_]
         return out
 
     B0 = W * R

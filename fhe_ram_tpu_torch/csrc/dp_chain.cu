@@ -61,10 +61,6 @@ struct DpTables {
   unsigned char leaf[FHE_MAX_LEAVES];
 };
 
-__device__ __forceinline__ int4 sub4(int4 a, int4 b) {
-  return make_int4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
-}
-
 // The b-phase digit poly of a leaf row, staged: F[co1] - F[co0] + (ob1 -
 // ob0) * delta, each operand read through L2.
 struct DpLeafDigits {
@@ -93,16 +89,6 @@ struct DpLeafBase {
     if (ob0) v += __ldcg(delta + at);
     return v;
   }
-};
-
-// The a-phase digit poly of a state row, staged: inner[2 + r] - inner[r].
-struct DiffDigits {
-  const int4* hi;
-  const int4* lo;
-  __device__ __forceinline__ int4 unit(int q) const {
-    return sub4(__ldcg(hi + q), __ldcg(lo + q));
-  }
-  __device__ __forceinline__ int operator()(const int* V, int i) const { return V[i]; }
 };
 
 // What both phases of op g at step d read.  Members copied from the
@@ -156,7 +142,8 @@ struct DpLeafStep : DpOp {
   __device__ __forceinline__ RowStore store() const { return RowStore{inner_row(slot)}; }
 };
 
-// a-phase: state row `slot` (< 2) of op g into F[g, slot], against rs1's key.
+// a-phase: state row `slot` (< 2) of op g into F[g, slot], against rs1's
+// key; its digit poly inner[2 + r] - inner[r] (DiffDigits).
 struct DpStateStep : DpOp {
   __device__ __forceinline__ DiffDigits digits(int tt) const {
     return DiffDigits{poly(inner_row(2 + slot), tt), poly(inner_row(slot), tt)};

@@ -338,9 +338,10 @@ struct ClusterRow {
 };
 
 // GridRow: cs consecutive blocks of a cooperative launch (all blocks of the
-// grid are resident, so a block may wait for another).  The one-launch tree
-// kernels, whose levels differ in rows and so in cs, which a cluster
-// dimension fixed at launch cannot follow.  The barrier is a counter in
+// grid are resident, so a block may wait for another).  The pack tree
+// (pack_tree.cu) and the split tree's predecessor
+// (tools/split_tree_predecessor.cu), whose levels differ in rows and so in
+// cs, which a cluster dimension fixed at launch cannot follow.  The barrier is a counter in
 // device memory, zero at launch and used by this group alone: every block
 // adds one and waits until cs more have arrived than at the last barrier.
 // Thread 0 spins without a back-off: a __nanosleep(40) in the loop moved no
@@ -725,7 +726,9 @@ struct RotateCmuxGlue : CoefficientDigits {
   }
 };
 
-// ---- the VM chain kernels (dp_chain.cu, bitwise.cu) -------------------------
+// ---- the predecessors of the VM chain kernels ------------------------------
+// (tools/dp_chain_predecessor.cu, tools/bitwise_predecessor.cu; dp_chain.cu
+// and bitwise.cu run on fold_body.cuh.)
 // A cooperative launch dealt into groups of `slots` x cs consecutive blocks.
 // A group walks units (an op of the carry chain, a bit of the bitwise
 // group) g, g + groups, ...; slot r of the group folds the r-th row of a
@@ -774,7 +777,9 @@ static inline int fold_launch(void (*kernel)(KArgs...), int rows,
   return (int)cudaGetLastError();
 }
 
-// ---- the one-launch tree kernels ------------------------------------------
+// ---- the one-launch tree kernels on fold_row -------------------------------
+// (pack_tree.cu and tools/split_tree_predecessor.cu; split_tree.cu runs on
+// fold_body.cuh.)
 // A tree kernel walks all levels of a split or pack tree in one cooperative
 // launch: every block of the grid is resident, each level's rows are dealt
 // over groups of blocks (GridRow), and a grid-wide barrier separates the

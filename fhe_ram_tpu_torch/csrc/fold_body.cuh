@@ -1,18 +1,20 @@
 // The fold body of csrc/fold.cu, shared by the kernels built on it: the
 // fold (kernels 2 and 5, fold.cu), the pack merge (kernel 4,
 // pack_merge.cu), the trace chain (kernel 3, trace.cu), the split level
-// (kernel 6, split.cu), the blind rotation (kernel 10, blind_rotate.cu)
-// and the carry-DP chain (kernel 11, dp_chain.cu).  fold.cu's note sets
-// out the design; this header holds its device functions: the Shoup and
-// lazy arithmetic, the three register layouts and the swizzle of the
-// exchange buffers, the radix-16 transforms (`forward` takes a loader of
-// the digit poly's coefficients, `inverse`), the key products, the Garner
-// and the Garner/fold/carry step over distributed shared memory
-// (`garner_fold` takes the base to add and what to do with each normalized
-// limb as functors), one trace step of a row (`trace_step`, which kernels
-// 3 and 6 share), one CMux step of a row (`cmux_step`, which kernels 10
-// and 11 share), a barrier over the clusters of a co-resident launch
-// (`OpBarrier`), and the cluster launches.
+// (kernel 6, split.cu), the split tree (kernel 7, split_tree.cu), the
+// bitwise group (kernel 9, bitwise.cu), the blind rotation (kernel 10,
+// blind_rotate.cu) and the carry-DP chain (kernel 11, dp_chain.cu).
+// fold.cu's note sets out the design; this header holds its device
+// functions: the Shoup and lazy arithmetic, the three register layouts and
+// the swizzle of the exchange buffers, the radix-16 transforms (`forward`
+// takes a loader of the digit poly's coefficients, `inverse`), the key
+// products, the Garner and the Garner/fold/carry step over distributed
+// shared memory (`garner_fold` takes the base to add and what to do with
+// each normalized limb as functors), one trace step of a row
+// (`trace_step`, which kernels 3, 6 and 7 share), one CMux step of a row
+// (`cmux_step`, which kernels 9, 10 and 11 share), a barrier over the
+// clusters of a co-resident launch (`OpBarrier`), and the cluster
+// launches.
 #pragma once
 
 #include "fhe_core.cuh"
@@ -360,6 +362,29 @@ struct TraceBase {
   }
 };
 
+// The store of a split level's Garner step (kernels 6 and 7): child0's limb
+// as it comes, and child1 = normalize(X^-t (2x - child0))'s, carried from
+// limb to limb of the coefficient, at its rotated word.  x, c0, c1: [C2, L,
+// n] of the row, not overlapping; t_back = 2n - t in [0, 2n).
+struct SplitStore {
+  const int* x;
+  int* c0;
+  int* c1;
+  int t_back;
+  __device__ __forceinline__ void operator()(int, int, int i, long long at, int dl,
+                                             int& carry) const {
+    c0[at] = dl;
+    const int kk = t_back & (FOLD_N - 1);
+    const bool wrap = i + kk >= FOLD_N;
+    int v = 2 * __ldcg(x + at) - dl;
+    if (wrap != (t_back >= FOLD_N)) v = -v;
+    v += carry;
+    const int d = ((v + 65536) & 131071) - 65536;
+    carry = (v - d) >> 17;
+    c1[at + (wrap ? kk - FOLD_N : kk)] = d;
+  }
+};
+
 // One trace step on a row, this block's part of it:
 //   normalize(ct + KS(sigma_g(ct))),  ct = st.in() [C2, L, n],
 // the digits the top Td limbs of sigma_g(ct)'s mask components (T = rank *
@@ -458,6 +483,98 @@ struct RowBase {
   }
 };
 
+__device__ __forceinline__ int4 sub4(int4 a, int4 b) {
+  return make_int4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+// The digit poly of a CMux whose arms are two rows, staged: hi - lo, both
+// read through L2.
+struct DiffDigits {
+  const int4* hi;
+  const int4* lo;
+  __device__ __forceinline__ int4 unit(int q) const {
+    return sub4(__ldcg(hi + q), __ldcg(lo + q));
+  }
+  __device__ __forceinline__ int operator()(const int* V, int i) const { return V[i]; }
+};
+
+// The forward half of cmux_step: st's T digit polys staged and transformed
+// for this block's prime into spec[tt * 4096 + r * 256 + t] (thread t's
+// register r), spec in shared memory or device memory; R is free after it.
+template <int kBlocks, class Step>
+__device__ __forceinline__ void cmux_forward(const Step& st, uint32_t* spec, bool& pending,
+                                             uint32_t* smem, const FoldShape& sh,
+                                             const FheConsts& c, const FoldTables& tb) {
+  const int t = threadIdx.x;
+  const int pi = (int)cooperative_groups::this_cluster().block_rank() % FHE_P;
+  uint32_t* R = smem + sh.T * FOLD_N;       // [max(Lk, 3)][n] residues / exchange
+  int4* V = reinterpret_cast<int4*>(R + 2 * FOLD_N);   // the staged poly
+  const uint32_t p = prime(c, pi);
+  if (pending) {   // the cluster is done with R and has written the step's input
+    cluster_wait();
+    pending = false;
+  }
+  uint2 own0[4];   // j = t at stages 0-3
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    own0[s] = ldg_pair(tb.fwd + pi * FOLD_N + 4096 - (4096 >> s) + t);
+  const uint2 psi_t = ldg_pair(tb.psi_lo + pi * FOLD_THREADS + t);
+  for (int tt = 0; tt < sh.T; ++tt) {
+    // every thread is past the previous forward's reads of V: they precede
+    // its first barrier
+    const auto dg = st.digits(tt);
+#pragma unroll
+    for (int q = 0; q < FOLD_N / 4 / FOLD_THREADS; ++q)
+      V[t + q * FOLD_THREADS] = dg.unit(t + q * FOLD_THREADS);
+    __syncthreads();
+    const int* Vw = reinterpret_cast<const int*>(V);
+    forward<kBlocks>([&](int i) { return dg(Vw, i); }, spec + tt * 16 * FOLD_THREADS, R,
+                     R + FOLD_N, own0, psi_t, p, tb, pi);
+  }
+  __syncthreads();   // the last exchange's reads are done: R is free
+}
+
+// The fold half of cmux_step: the key products of the T spectra in shared
+// memory, the inverse transforms and the Garner step of this block's
+// components into st.store(), with base st.base().
+template <class Step>
+__device__ __forceinline__ void cmux_fold(const Step& st, bool& pending, uint32_t* smem,
+                                          const FoldShape& sh, const FheConsts& c,
+                                          const FoldTables& tb) {
+  const int t = threadIdx.x;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int pi = rank % FHE_P, grp = rank / FHE_P;
+  const int c2_per = sh.C2 / (sh.cs / FHE_P);
+  const int T = sh.T, Lk = sh.Lk;
+  uint32_t* spec = smem;                    // [T][16][256], thread-private words
+  uint32_t* R = smem + T * FOLD_N;          // [max(Lk, 3)][n] residues / exchange
+  const uint32_t p = prime(c, pi);
+  uint2 own2[4];   // j = t at stages 8-11
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    own2[s] = ldg_pair(tb.inv + pi * FOLD_N + (256 << s) - 1 + t);
+  const uint2 ipsi_t = ldg_pair(tb.ipsi_lo + pi * FOLD_THREADS + t);
+  for (int c2 = grp * c2_per; c2 < (grp + 1) * c2_per; ++c2) {
+    for (int lk = 0; lk < Lk; ++lk) {
+      uint32_t v[16];
+      products(v, spec, st.key(pi) + (long long)(c2 * Lk + lk) * FOLD_N, T,
+               (long long)sh.M * FOLD_N, p,
+               pi == 0 ? c.mu64[0] : pi == 1 ? c.mu64[1] : c.mu64[2]);
+      if (pending) {   // the previous component's residues are read
+        cluster_wait();
+        pending = false;
+      }
+      uint32_t* y = R + lk * FOLD_N;
+      inverse(v, lk + 1 < Lk ? y + FOLD_N : y, y, own2, ipsi_t, p, tb, pi);
+    }
+    cluster_arrive();   // every block's residues of component c2 are in
+    cluster_wait();
+    garner_fold(R, grp, pi, c2, st.base(), st.store(), sh, c, tb);
+    cluster_arrive();   // done reading the cluster's residues, done writing
+    pending = true;     // this component of the output
+  }
+}
+
 // One CMux step on a row, this block's part of it:
 //   normalize(lo + (hi - lo)[:Td] x GGSW),
 // the digits the top Td limbs of EVERY component of hi - lo (T = C2 * Td),
@@ -483,67 +600,14 @@ struct RowBase {
 // in trace_step; the wait before the first staging is also the barrier
 // after the previous step, whose output the cluster wrote.  Kept apart from
 // trace_step: the merge run through one hook-generalised row step was
-// slower on an H100.
+// slower on an H100.  Its two halves, cmux_forward and cmux_fold, are
+// also called apart (bitwise.cu: spectra shared by many rows).
 template <int kBlocks, class Step>
 __device__ __forceinline__ void cmux_step(const Step& st, bool& pending, uint32_t* smem,
                                           const FoldShape& sh, const FheConsts& c,
                                           const FoldTables& tb) {
-  const int t = threadIdx.x;
-  const int rank = (int)cooperative_groups::this_cluster().block_rank();
-  const int pi = rank % FHE_P, grp = rank / FHE_P;
-  const int c2_per = sh.C2 / (sh.cs / FHE_P);
-  const int T = sh.T, Lk = sh.Lk;
-  uint32_t* spec = smem;                    // [T][16][256], thread-private words
-  uint32_t* R = smem + T * FOLD_N;          // [max(Lk, 3)][n] residues / exchange
-  int4* V = reinterpret_cast<int4*>(R + 2 * FOLD_N);   // the staged poly
-  const uint32_t p = prime(c, pi);
-  if (pending) {   // the cluster is done with R and has written the step's input
-    cluster_wait();
-    pending = false;
-  }
-  uint2 own0[4];   // j = t at stages 0-3
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-    own0[s] = ldg_pair(tb.fwd + pi * FOLD_N + 4096 - (4096 >> s) + t);
-  const uint2 psi_t = ldg_pair(tb.psi_lo + pi * FOLD_THREADS + t);
-  for (int tt = 0; tt < T; ++tt) {
-    // every thread is past the previous forward's reads of V: they precede
-    // its first barrier
-    const auto dg = st.digits(tt);
-#pragma unroll
-    for (int q = 0; q < FOLD_N / 4 / FOLD_THREADS; ++q)
-      V[t + q * FOLD_THREADS] = dg.unit(t + q * FOLD_THREADS);
-    __syncthreads();
-    const int* Vw = reinterpret_cast<const int*>(V);
-    forward<kBlocks>([&](int i) { return dg(Vw, i); }, spec + tt * 16 * FOLD_THREADS, R,
-                     R + FOLD_N, own0, psi_t, p, tb, pi);
-  }
-  __syncthreads();   // the last exchange's reads are done: R is free
-
-  uint2 own2[4];   // j = t at stages 8-11
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-    own2[s] = ldg_pair(tb.inv + pi * FOLD_N + (256 << s) - 1 + t);
-  const uint2 ipsi_t = ldg_pair(tb.ipsi_lo + pi * FOLD_THREADS + t);
-  for (int c2 = grp * c2_per; c2 < (grp + 1) * c2_per; ++c2) {
-    for (int lk = 0; lk < Lk; ++lk) {
-      uint32_t v[16];
-      products(v, spec, st.key(pi) + (long long)(c2 * Lk + lk) * FOLD_N, T,
-               (long long)sh.M * FOLD_N, p,
-               pi == 0 ? c.mu64[0] : pi == 1 ? c.mu64[1] : c.mu64[2]);
-      if (pending) {   // the previous component's residues are read
-        cluster_wait();
-        pending = false;
-      }
-      uint32_t* y = R + lk * FOLD_N;
-      inverse(v, lk + 1 < Lk ? y + FOLD_N : y, y, own2, ipsi_t, p, tb, pi);
-    }
-    cluster_arrive();   // every block's residues of component c2 are in
-    cluster_wait();
-    garner_fold(R, grp, pi, c2, st.base(), st.store(), sh, c, tb);
-    cluster_arrive();   // done reading the cluster's residues, done writing
-    pending = true;     // this component of the output
-  }
+  cmux_forward<kBlocks>(st, smem, pending, smem, sh, c, tb);
+  cmux_fold(st, pending, smem, sh, c, tb);
 }
 
 // A barrier over `blocks` blocks of a launch whose blocks are all resident

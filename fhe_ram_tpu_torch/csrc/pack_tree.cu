@@ -12,10 +12,11 @@
 // 32 leaves have 64, 32, ..., 4 row pairs for 132 SMs, and a launch of its
 // own costs each of the deep ones ~0.1-0.13 ms whatever its rows.  Bytes:
 // M * nb rows in, nb out, log2(M) keys.
-// Design: as split_tree.cu, run the other way.  ONE cooperative launch;
-// each level deals its row pairs over groups of cs_s consecutive blocks
-// (GridRow; cs_s by the level's rows, from the wrapper), group g walking
-// pairs g, g + groups, ...; a grid-wide barrier separates the levels.
+// Design: as the split tree's predecessor (tools/split_tree_predecessor.cu),
+// run the other way.  ONE cooperative launch; each level deals its row
+// pairs over groups of cs_s consecutive blocks (GridRow; cs_s by the
+// level's rows, from the wrapper), group g walking pairs g, g + groups,
+// ...; a grid-wide barrier separates the levels.
 // Nodes lie node-major as the leaves do ([node, nb, C2, L, n]), so pair r
 // of a level is rows r and r + R * nb of its source and row r of its
 // destination.  A merge reads rotated and permuted positions of both its

@@ -26,33 +26,13 @@
 // spectra and max(Lk, 3) residue polys, 112 KB at T = 3, Lk = 4: two
 // blocks an SM; nothing in device memory but the rows.  x, child0 and
 // child1 must not overlap.
-// Its predecessor, split_row (fhe_core.cuh, which kernel 7, split_tree.cu,
-// still runs: fold_row, a cluster barrier, then child1 from x and child0
-// re-read through L2) with the residues parked in a device scratch, is kept
-// for timing in fhe_ram_tpu_torch/tools/split_predecessor.cu.
+// The store of the Garner step is fold_body.cuh's SplitStore, which kernel
+// 7 (split_tree.cu) runs at every level of its tree.
+// Its predecessor, split_row (fhe_core.cuh: fold_row, a cluster barrier,
+// then child1 from x and child0 re-read through L2) with the residues
+// parked in a device scratch, is kept for timing in
+// fhe_ram_tpu_torch/tools/split_predecessor.cu.
 #include "fold_body.cuh"
-
-// The store of a split's Garner step: child0's limb as it comes, and
-// child1's, carried from limb to limb of the coefficient, at its rotated
-// word.  x, c0, c1: [C2, L, n] of the row; t_back in [0, 2n).
-struct SplitStore {
-  const int* x;
-  int* c0;
-  int* c1;
-  int t_back;
-  __device__ __forceinline__ void operator()(int, int, int i, long long at, int dl,
-                                             int& carry) const {
-    c0[at] = dl;
-    const int kk = t_back & (FOLD_N - 1);
-    const bool wrap = i + kk >= FOLD_N;
-    int v = 2 * __ldcg(x + at) - dl;
-    if (wrap != (t_back >= FOLD_N)) v = -v;
-    v += carry;
-    const int d = ((v + 65536) & 131071) - 65536;
-    carry = (v - d) >> 17;
-    c1[at + (wrap ? kk - FOLD_N : kk)] = d;
-  }
-};
 
 // Row r of the level.  Members copied from the kernel's parameters; what is
 // derived from them is derived at each use.

@@ -85,15 +85,15 @@ _MAX_OPS = 16     # FHE_MAX_OPS of csrc/dp_chain.cu, bitwise.cu: ops of a VM gro
 MAX_SHARDS = 16   # FHE_MAX_SHARDS of csrc/collective.cu: shards of a collective
 _MAX_SMEM = 232448  # bytes of shared memory one block can use on sm_90
 _SM_SMEM = 233472   # bytes of shared memory of an SM, 1 KB a block reserved
-# Rows up to which a launch of the fold_row kernels (trees, bitwise group)
-# gives each row a cluster of 6 resp. 3 blocks
+# Rows up to which a launch of the fold_row kernels (the pack tree, and the
+# predecessors in tools/) gives each row a cluster of 6 resp. 3 blocks
 # (timed on an H100 with tools/time_fold_chunks.py: at T = 2, M = 6 a
 # cluster of 6 wins up to 32 rows, of 3 up to 128, one block a row beyond).
 _ROWS_CLUSTER_6 = 32
 _ROWS_CLUSTER_3 = 128
 # The fold (csrc/fold.cu) and the kernels on its body (pack_merge.cu,
-# trace.cu, split.cu, blind_rotate.cu, dp_chain.cu) give every row a
-# cluster of 3 blocks, one a prime, or
+# trace.cu, split.cu, split_tree.cu, bitwise.cu, blind_rotate.cu,
+# dp_chain.cu) give every row a cluster of 3 blocks, one a prime, or
 # of 6 (the output components shared by two groups of 3) up to this many
 # rows; tools/time_fold_predecessor.py times both.
 _FOLD_ROWS_6 = 32
@@ -171,6 +171,11 @@ class _TreeLevels(ctypes.Structure):
     _fields_ = [("count", ctypes.c_int), ("cs", ctypes.c_int * _MAX_STEPS),
                 ("ginv", ctypes.c_int * _MAX_STEPS),
                 ("rot", ctypes.c_int * _MAX_STEPS)]
+
+
+class _SplitLevels(ctypes.Structure):
+    _fields_ = [("count", ctypes.c_int), ("ginv", ctypes.c_int * _MAX_STEPS),
+                ("t_back", ctypes.c_int * _MAX_STEPS)]
 
 
 class _RotSteps(ctypes.Structure):
@@ -285,10 +290,9 @@ def build_kernels(verbose: bool = False):
                                            _FoldShape, _Consts, _FoldTables, vp],
         ("split", "fhe_split"): [vp, vp, vp, vp, ci, ci, ci, ci, ci, _FoldShape,
                                  _Consts, _FoldTables, vp],
-        ("split_tree", "fhe_split_tree_blocks"): [_FoldShape, ci, cip],
-        ("split_tree", "fhe_split_tree"): [vp, vp, vp, vp, vp, vp, ci, ci,
-                                           _TreeLevels, _FoldShape, _Consts,
-                                           _Tables, vp],
+        ("split_tree", "fhe_split_tree_clusters"): [_FoldShape, ci, cip],
+        ("split_tree", "fhe_split_tree"): [vp, vp, vp, vp, vp, ci, ci, _SplitLevels,
+                                           ci, _FoldShape, _Consts, _FoldTables, vp],
         ("pack_tree", "fhe_pack_tree_blocks"): [_FoldShape, ci, cip],
         ("pack_tree", "fhe_pack_tree"): [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                          _TreeLevels, _FoldShape, _Consts,
@@ -300,9 +304,9 @@ def build_kernels(verbose: bool = False):
         ("dp_chain", "fhe_dp_chain"): [vp, vp, vp, vp, vp, vp, ci, _DpTables, ci,
                                        ci, ci, ci, _FoldShape, _Consts,
                                        _FoldTables, vp],
-        ("bitwise", "fhe_bitwise_blocks"): [_FoldShape, ci, cip],
-        ("bitwise", "fhe_bitwise"): [vp, vp, vp, vp, vp, vp, vp, ci, _OpGroups,
-                                     ci, ci, ci, _FoldShape, _Consts, _Tables, vp],
+        ("bitwise", "fhe_bitwise_clusters"): [_FoldShape, ci, cip],
+        ("bitwise", "fhe_bitwise"): [vp, vp, vp, vp, vp, vp, vp, ci, _OpGroups, ci, ci,
+                                     ci, ci, _FoldShape, _Consts, _FoldTables, vp],
         ("collective", "fhe_ring_all_gather"): [ShardPtrs, ci, ctypes.c_longlong,
                                                 vp],
         ("collective", "fhe_exchange"): [ShardPtrs, ci, ci, ctypes.c_longlong, vp],
@@ -568,8 +572,8 @@ _sm_count = {}
 
 def _fold_blocks(blocks_total: int, T: int, Lk: int, device) -> int:
     """The instantiation of csrc/fold.cu (or of a kernel on the same body:
-    pack_merge.cu, trace.cu, split.cu, blind_rotate.cu, dp_chain.cu) a
-    launch of `blocks_total` blocks
+    pack_merge.cu, trace.cu, split.cu, split_tree.cu, bitwise.cu,
+    blind_rotate.cu, dp_chain.cu) a launch of `blocks_total` blocks
     takes: 2 (128 registers a thread, two blocks an SM) when the shape's
     shared memory, (T + Lk) polys a block, lets two blocks share an SM and
     there are more blocks than SMs; else 1
@@ -603,10 +607,10 @@ def _fold_shape_arg(rows: int, T: int, M: int, c2: int, out_limbs: int,
 
 
 def _staged_fold_polys(T: int, M: int, c2: int, what: str) -> int:
-    """Polys of shared memory a block of pack_merge.cu, trace.cu, split.cu,
-    blind_rotate.cu or dp_chain.cu holds: the T spectra and max(Lk, 3)
-    residue polys, the third doubling as the staging buffer of a digit
-    poly.  Raises where they do not fit."""
+    """Polys of shared memory a block of every kernel on the fold body but
+    fold.cu holds: the T spectra and max(Lk, 3) residue polys, the third
+    doubling as the staging buffer of a digit poly.  Raises where they do
+    not fit."""
     polys = T + max(M // c2, 3)
     if M // c2 > _FOLD_MAX_LK or polys * 4 * 4096 > _MAX_SMEM:
         raise ValueError(f"T = {T} digit polys and {M // c2} key limbs do not fit "
@@ -949,9 +953,26 @@ def fused_split(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
 # --------------------------------------------------------------------------
 
 # occupancy queries: (source, T, mc, log_n, device index) -> co-resident
-# blocks of a tree or the bitwise group; ("dp_chain", cs, blocks, polys,
-# device index) -> co-resident clusters of the carry chain
+# blocks of the pack tree; (source, cs, blocks, polys, device index) ->
+# co-resident clusters of a cooperative clustered launch on the fold body
+# (the split tree, the bitwise group, the carry chain)
 _resident = {}
+
+
+def _max_clusters(source: str, sh: _FoldShape, blocks: int, polys: int, device) -> int:
+    """The most clusters of sh.cs blocks of `source`'s instantiation
+    `blocks` (2 or 1), each holding `polys` polys of shared memory, that the
+    card holds at once (csrc/<source>.cu's fhe_<source>_clusters): the
+    largest grid of a cooperative launch of it."""
+    key = (source, sh.cs, blocks, polys, torch.device(device).index)
+    if key not in _resident:
+        clusters = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = getattr(_lib(source), f"fhe_{source}_clusters")(
+                sh, blocks, ctypes.byref(clusters))
+        _check(err, f"the occupancy query of {source}")
+        _resident[key] = clusters.value
+    return _resident[key]
 
 
 def _cooperative_shape(source: str, T: int, M: int, C2: int, L: int, sign: int,
@@ -1033,24 +1054,73 @@ def fused_split_tree(ctx: NTTContext, ct, gal_els, keys_stacked):
     _fold_limits(T, M, C2, L, n)
     if not _use_kernel(ctx, ct):
         return fused_split_tree_plain(ctx, ct, gal_els, keys_stacked)
-    ct = _require(ct, "ct")
-    keys_stacked = _require(keys_stacked, "keys_stacked")
+    out = _launch_split_tree(ctx, ct, gal_els, keys_stacked)
+    if nb:
+        LAUNCHES["fused_split_tree"] += 1
+    return out
+
+
+def _split_tree_layout(nb: int, S: int, T: int, M: int, C2: int, L: int, device,
+                       cs: int | None = None, blocks: int | None = None):
+    """(shape argument, instantiation, clusters) of a split-tree launch.
+    One cluster size serves every level: for each size (6 where the
+    components split evenly, and 3), the instantiation `_fold_blocks` gives
+    the widest level and the clusters the card holds at once with it; the
+    levels then take sum_l ceil(nb 2^l / clusters) rounds of rows, a round
+    priced by the transforms of one block, T + 3 M / cs.  The cheaper size
+    wins (a single write's tree, nb = 4, S = 6: clusters of 6; a batched
+    RMW's of 16, nb = 64: of 3).  cs and blocks given here override the
+    choice (tools/time_bitwise_split_tree_predecessors.py times the
+    others).  Raises where the card holds no cluster."""
+    polys = _staged_fold_polys(T, M, C2, "split tree")
+    widest = nb << (S - 1)
+    best = None
+    for cs_ in (cs,) if cs is not None else (6, 3) if C2 % 2 == 0 else (3,):
+        sh = _FoldShape(T, M, M // C2, L, C2, -1, 0, cs_)
+        b = blocks if blocks is not None else _fold_blocks(widest * cs_, T, polys - T, device)
+        clusters = _max_clusters("split_tree", sh, b, polys, device)
+        if clusters < 1:
+            continue
+        cost = sum(-(-(nb << l) // clusters) for l in range(S)) * (T + 3 * M / cs_)
+        if best is None or cost < best[0]:
+            best = (cost, sh, b, min(clusters, widest))
+    if best is None:
+        raise RuntimeError("split_tree: the device holds no cluster of its blocks")
+    return best[1:]
+
+
+def _split_levels(gal_els, n: int) -> _SplitLevels:
+    """csrc/split_tree.cu's level table: level l's g^-1 mod 2n and the
+    back-rotation X^-2^l as X^t_back, t_back in [0, 2n)."""
+    lv = _SplitLevels()
+    lv.count = len(gal_els)
+    for l, g in enumerate(gal_els):
+        lv.ginv[l] = poly.auto_inverse(n, g)
+        lv.t_back[l] = -(1 << l) % (2 * n)
+    return lv
+
+
+def _launch_split_tree(ctx: NTTContext, ct, gal_els, keys_stacked, cs: int | None = None,
+                       blocks: int | None = None):
+    """One launch of csrc/split_tree.cu on checked arguments, not counted
+    (`fused_split_tree` counts it); the layout `_split_tree_layout`'s."""
+    nb, C2, L, n = ct.shape
+    S, P, T, M, _ = keys_stacked.shape
+    ct = _aligned16(_require(ct, "ct"))
+    keys_stacked = _aligned16(_require(keys_stacked, "keys_stacked"))
     out = torch.empty((nb, 1 << S, C2, L, n), dtype=I32, device=ct.device)
     if nb == 0:
         return out
-    sh, lv, blocks = _tree_launch_args(
-        "split_tree", [nb << l for l in range(S)], gal_els,
-        [-(1 << l) for l in range(S)], T, M, C2, L, n, ct.device)
+    sh, blocks, clusters = _split_tree_layout(nb, S, T, M, C2, L, ct.device, cs, blocks)
+    lv = _split_levels(gal_els, n)
     tmp = torch.empty((nb, 1 << (S - 1), C2, L, n), dtype=I32, device=ct.device)
-    scratch = torch.empty((blocks, P, M, n), dtype=I32, device=ct.device)
-    arrived = torch.zeros((S, blocks), dtype=I32, device=ct.device)
+    arrived = torch.zeros((1,), dtype=I32, device=ct.device)
     with torch.cuda.device(ct.device):
         err = _lib("split_tree").fhe_split_tree(
-            ct.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(),
-            tmp.data_ptr(), scratch.data_ptr(), arrived.data_ptr(), nb, blocks,
-            lv, sh, _consts(ctx), _tables(ctx, ct.device), _stream())
+            ct.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+            arrived.data_ptr(), nb, clusters, lv, blocks, sh, _consts(ctx),
+            _fold_tables(ctx, ct.device), _stream())
     _check(err, "fused_split_tree")
-    LAUNCHES["fused_split_tree"] += 1
     return out
 
 
@@ -1325,17 +1395,11 @@ def _launch_dp_chain(ctx: NTTContext, F0, keys_stacked, deltas, tab: _DpTables,
         sh.cs = cs
     if blocks is None:
         blocks = _fold_blocks(4 * G * sh.cs, T, polys - T, F0.device)
-    key = ("dp_chain", sh.cs, blocks, polys, torch.device(F0.device).index)
-    if key not in _resident:
-        clusters = ctypes.c_int(0)
-        with torch.cuda.device(F0.device):
-            err = _lib("dp_chain").fhe_dp_chain_clusters(sh, blocks, ctypes.byref(clusters))
-        _check(err, "the occupancy query of dp_chain")
-        _resident[key] = clusters.value
-    groups_ = min(G, _resident[key] // 4)
+    resident = _max_clusters("dp_chain", sh, blocks, polys, F0.device)
+    groups_ = min(G, resident // 4)
     if groups_ < 1:
         raise RuntimeError(f"dp_chain: an op takes 4 clusters of {sh.cs} blocks, the "
-                           f"device holds {_resident[key]} at once")
+                           f"device holds {resident} at once")
     out = torch.empty_like(F0)
     inner = torch.empty((G, 4, C2, L, n), dtype=I32, device=F0.device)
     arrived = torch.zeros((groups_,), dtype=I32, device=F0.device)
@@ -1389,7 +1453,7 @@ def fused_bitwise(ctx: NTTContext, leaves_hi, leaves_lo, keys_stacked, groups):
     W = keys_stacked.shape[0]
     of = _op_groups(groups, G)
     NG = len(groups)
-    Td, T, M = _chain_keys(keys_stacked, 2, C2, L, n, ctx)
+    _chain_keys(keys_stacked, 2, C2, L, n, ctx)
     if (two != 2 or tuple(leaves_lo.shape) != tuple(leaves_hi.shape)
             or keys_stacked.shape[1] != NG + 1 or W < 1):
         raise ValueError(f"leaves {tuple(leaves_hi.shape)} / {tuple(leaves_lo.shape)} "
@@ -1399,32 +1463,49 @@ def fused_bitwise(ctx: NTTContext, leaves_hi, leaves_lo, keys_stacked, groups):
             raise ValueError(f"{name} lies on {t.device}, leaves_hi on {leaves_hi.device}")
     if not _use_kernel(ctx, leaves_hi):
         return fused_bitwise_plain(ctx, leaves_hi, leaves_lo, keys_stacked, groups)
-    hi = _require(leaves_hi, "leaves_hi")
-    lo = _require(leaves_lo, "leaves_lo")
-    keys_stacked = _require(keys_stacked, "keys_stacked")
+    out = _launch_bitwise(ctx, leaves_hi, leaves_lo, keys_stacked, of)
+    LAUNCHES["fused_bitwise"] += 1
+    return out
+
+
+def _launch_bitwise(ctx: NTTContext, leaves_hi, leaves_lo, keys_stacked, of,
+                    cs: int | None = None, blocks: int | None = None):
+    """One launch of csrc/bitwise.cu on checked CUDA arguments, not counted
+    (`fused_bitwise` counts it); `of`: each op's source group.  The layout:
+    the 2G leaf rows' spectra and the 3 W G rows (2 W G level-1, W G
+    level-2) dealt over persistent clusters of cs blocks (_fold_cs of the
+    rows), the instantiation `blocks` (_fold_blocks of one cluster a row),
+    as many clusters as the card holds at once; cs and blocks given here
+    override the choice (tools/time_bitwise_split_tree_predecessors.py
+    times the others)."""
+    G, _, C2, L, n = leaves_hi.shape
+    W, NG1, _, T, M, _ = keys_stacked.shape
+    polys = _staged_fold_polys(T, M, C2, "bitwise group")
+    hi = _aligned16(_require(leaves_hi, "leaves_hi"))
+    lo = _aligned16(_require(leaves_lo, "leaves_lo"))
+    keys_stacked = _aligned16(_require(keys_stacked, "keys_stacked"))
+    rows = 3 * W * G
+    sh = _fold_shape_arg(rows, T, M, C2, L, 1)
+    if cs is not None:
+        sh.cs = cs
+    if blocks is None:
+        blocks = _fold_blocks(rows * sh.cs, T, polys - T, hi.device)
+    clusters = min(rows + 2 * G, _max_clusters("bitwise", sh, blocks, polys, hi.device))
+    if clusters < 1:
+        raise RuntimeError(f"bitwise: the device holds no cluster of {sh.cs} blocks")
     ops = _OpGroups()
     ops.count = G
     for g in range(G):
         ops.group[g] = of[g]
-    slots = 2 * G
-    sh, resident = _cooperative_shape("bitwise", T, M, C2, L, 1, n, hi.device)
-    cs = next((c for c in (_row_blocks(W * slots, M), 3, 1) if slots * c <= resident),
-              None)
-    if cs is None:
-        raise RuntimeError(f"bitwise: {slots} blocks a bit, the device holds {resident}")
-    groups_ = min(W, resident // (slots * cs))
-    sh.cs = cs
-    blocks = groups_ * slots * cs
     out = torch.empty((W, G, C2, L, n), dtype=I32, device=hi.device)
     inner = torch.empty((W, G, 2, C2, L, n), dtype=I32, device=hi.device)
-    scratch = torch.empty((blocks // cs, len(ctx.primes), M, n), dtype=I32,
-                          device=hi.device)
-    arrived = torch.zeros((groups_, slots + 1), dtype=I32, device=hi.device)
+    spectra = torch.empty((2 * G, len(ctx.primes), T, n), dtype=I32, device=hi.device)
+    done = torch.zeros((W * G + 2 * G,), dtype=I32, device=hi.device)
     with torch.cuda.device(hi.device):
         err = _lib("bitwise").fhe_bitwise(
             hi.data_ptr(), lo.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(),
-            inner.data_ptr(), scratch.data_ptr(), arrived.data_ptr(), blocks, ops,
-            W, NG, Td, sh, _consts(ctx), _tables(ctx, hi.device), _stream())
+            inner.data_ptr(), spectra.data_ptr(), done.data_ptr(), clusters, ops, W,
+            NG1 - 1, T // C2, blocks, sh, _consts(ctx), _fold_tables(ctx, hi.device),
+            _stream())
     _check(err, "fused_bitwise")
-    LAUNCHES["fused_bitwise"] += 1
     return out

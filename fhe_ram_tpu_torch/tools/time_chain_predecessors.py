@@ -50,6 +50,41 @@ HERE = Path(__file__).resolve().parent
 DP_LAYOUTS = ((6, 2), (6, 1), (3, 2), (3, 1))   # (blocks a cluster, instantiation)
 
 
+def guard_calls(limbs):
+    """{name and shape: call} of the four kernels on fold_body.cuh that the
+    chains do not run, one shape each (the read's level-0 fold, the read's
+    widest merge level, the read's trace, the write's last split level),
+    on random limbs(shape) at PARAMS_2_18_TURBO_READOPT: timed first and
+    last beside kernels that share their device functions."""
+    ctx = get_ntt_context(PAR.n, PAR.primes)
+    n, C, L, rank = PAR.n, PAR.rank + 1, PAR.limbs_ct, PAR.rank
+    W, R = PAR.word_size, PAR.num_rows
+
+    def spectra(shape):
+        return ntt_cuda.ntt_fwd_cuda(ctx, limbs(shape))
+
+    T_ep, M_ep = C * PAR.read_ep_trunc[0], C * PAR.read_ep_trunc[1]
+    T_ks, M_ks = rank * PAR.read_ks_trunc[0], C * PAR.read_ks_trunc[1]
+    T_kf, M_kf = rank * L, C * PAR.limbs_evk_trace
+    keys_ep = spectra((1, T_ep, M_ep, n)).reshape(3, 1, T_ep, M_ep, n)
+    key_ks = spectra((T_ks, M_ks, n))
+    keys_tr = spectra((PAR.log_n, T_ks, M_ks, n)).permute(1, 0, 2, 3, 4).contiguous()
+    key_kf = spectra((T_kf, M_kf, n))
+    x_ep = limbs((W * R, T_ep, n))
+    A_m, B_m = limbs((W * R // 2, C, L, n)), limbs((W * R // 2, C, L, n))
+    ct_tr, ct_sp = limbs((W, C, L, n)), limbs((W * R // 2, C, L, n))
+    lv = R.bit_length() - 2
+    return {
+        f"fused_external_fold x[{W * R},{T_ep},4096] keys[3,1,{T_ep},{M_ep},4096]":
+            lambda: ntt_cuda.fused_external_fold(ctx, x_ep, keys_ep, L, C),
+        f"fused_pack_merge nb={W * R // 2} T={T_ks} M={M_ks}":
+            lambda: ntt_cuda.fused_pack_merge(ctx, A_m, B_m, 1, n + 1, key_ks),
+        f"fused_trace B={W} S={PAR.log_n} T={T_ks} M={M_ks}":
+            lambda: ntt_cuda.fused_trace(ctx, ct_tr, keys_tr, PAR.trace_gal_els),
+        f"fused_split nb={W * R // 2} t={1 << lv} T={T_kf} M={M_kf}":
+            lambda: ntt_cuda.fused_split(ctx, ct_sp, 1 << lv, PAR.trace_gal_els[lv], key_kf)}
+
+
 def build():
     """{name: ctypes library} of the two predecessors, built into build/."""
     vp, ci, cip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
@@ -163,36 +198,7 @@ def main():
               **{f"{k}_ms": statistics.mean(v) for k, v in ms.items()}, "runs_ms": ms})
         return all(equal.values())
 
-    # the guard: the four kernels on fold_body.cuh beside the two, one shape
-    # each (the read's level-0 fold, the read's widest merge level, the
-    # read's trace, the write's last split level), first and last
-    ctx = get_ntt_context(PAR.n, PAR.primes)
-    n, C, L, rank = PAR.n, PAR.rank + 1, PAR.limbs_ct, PAR.rank
-    W, R = PAR.word_size, PAR.num_rows
-
-    def spectra(shape):
-        return ntt_cuda.ntt_fwd_cuda(ctx, limbs(shape))
-
-    T_ep, M_ep = C * PAR.read_ep_trunc[0], C * PAR.read_ep_trunc[1]
-    T_ks, M_ks = rank * PAR.read_ks_trunc[0], C * PAR.read_ks_trunc[1]
-    T_kf, M_kf = rank * L, C * PAR.limbs_evk_trace
-    keys_ep = spectra((1, T_ep, M_ep, n)).reshape(3, 1, T_ep, M_ep, n)
-    key_ks = spectra((T_ks, M_ks, n))
-    keys_tr = spectra((PAR.log_n, T_ks, M_ks, n)).permute(1, 0, 2, 3, 4).contiguous()
-    key_kf = spectra((T_kf, M_kf, n))
-    x_ep = limbs((W * R, T_ep, n))
-    A_m, B_m = limbs((W * R // 2, C, L, n)), limbs((W * R // 2, C, L, n))
-    ct_tr, ct_sp = limbs((W, C, L, n)), limbs((W * R // 2, C, L, n))
-    lv = R.bit_length() - 2
-    guards = {
-        f"fused_external_fold x[{W * R},{T_ep},4096] keys[3,1,{T_ep},{M_ep},4096]":
-            lambda: ntt_cuda.fused_external_fold(ctx, x_ep, keys_ep, L, C),
-        f"fused_pack_merge nb={W * R // 2} T={T_ks} M={M_ks}":
-            lambda: ntt_cuda.fused_pack_merge(ctx, A_m, B_m, 1, n + 1, key_ks),
-        f"fused_trace B={W} S={PAR.log_n} T={T_ks} M={M_ks}":
-            lambda: ntt_cuda.fused_trace(ctx, ct_tr, keys_tr, PAR.trace_gal_els),
-        f"fused_split nb={W * R // 2} t={1 << lv} T={T_kf} M={M_kf}":
-            lambda: ntt_cuda.fused_split(ctx, ct_sp, 1 << lv, PAR.trace_gal_els[lv], key_kf)}
+    guards = guard_calls(limbs)
     guard_ms = {k: [] for k in guards}
 
     def time_guards():

@@ -1,5 +1,6 @@
-"""The second child of a split level on the fold body (csrc/split.cu
-SplitStore, called in the Garner step of fold_body.cuh's garner_fold):
+"""The second child of a split level on the fold body (csrc/fold_body.cuh
+SplitStore, which split.cu and split_tree.cu call in the Garner step of
+garner_fold):
 every block of the cluster walks its share of the coefficients of its
 components (garner_fold's i_per cut, its threads' stride), carries
 d_l = +-(2 x - child0) of each coefficient from l = L - 1 down to 0 and
