@@ -18,16 +18,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  the row-sharded paths' shapes at PARAMS_2_24_READOPT
                  (torch.equal: integer arithmetic, tolerance 0), with times
                  (the collectives also beside one torch.stack that makes
-                 every shard's output); kernels 1 and 12 in both transform
-                 bodies, the two-pass variant also bit-equal to the radix-2
-                 one; kernels 2 and 5 (one build for both bodies) with their
-                 registers and blocks an SM, and timed at the 2^24 read's
-                 level 0, as kernel 4 (on the same body) is; kernels 3 and 6
-                 (on that body too) at a read's, a write's and a batch's
-                 shapes, the split up to the per-level batched RMW's last
-                 level (2048 rows); kernel 12 (on no path) also folded and
-                 held against kernel 2; kernels 7 and 9 also bit-equal to
-                 their predecessors (fhe_ram_tpu_torch/tools/), timed beside
+                 every shard's output); kernel 12 in both transform bodies,
+                 the two-pass variant also bit-equal to the radix-2 one;
+                 kernels 1, 2 and 5 (one build for both bodies) under both
+                 contexts, the two-pass context's call bit-equal to the
+                 radix-2 one's, kernel 2 also timed at the 2^24 read's level
+                 0, as kernel 4 (on the same body) is; kernels 3 and 6 (on
+                 that body too) at a read's, a write's and a batch's shapes,
+                 the split up to the per-level batched RMW's last level
+                 (2048 rows); kernel 12 (on no path) also folded and held
+                 against kernel 2; kernels 1, 7, 8 and 9 also bit-equal to
+                 their predecessors (fhe_ram_tpu_torch/tools/; kernel 1's in
+                 both bodies), timed beside
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -55,9 +57,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  two-pass transform body; each pack merge, trace step and
                  split level one fold launch): the read phase's addresses,
                  each bit-equal to the fused server's read and decoded;
-                 every launch of the window a fold (kernels 2, 5) or a
-                 two-pass variant (none of kernels 3, 4, 6-11, no radix-2
-                 transform); composed_read_ms beside read_ms
+                 every launch of the window a fold (kernels 2, 5), a
+                 transform (kernel 1: one build for both bodies) or a
+                 two-pass variant (none of kernels 3, 4, 6-11);
+                 composed_read_ms beside read_ms
   composed_rmw   4 chained composed cycles at fresh addresses: old words out,
                  new words back, each cycle bit-equal to the fused server's
                  (read-out and all of the new RAM); rpw_ms, write_ms
@@ -389,21 +392,22 @@ def main():
           "cuda": torch.version.cuda})
 
     # ---- build -------------------------------------------------------------
-    # the predecessors of kernels 7 and 9 (fhe_ram_tpu_torch/tools/), held
-    # bit-equal to them below, build beside the kernels, each nvcc started
-    # before the first is awaited
+    # the predecessors of kernels 1, 7, 8 and 9 (fhe_ram_tpu_torch/tools/),
+    # held bit-equal to them below, build beside the kernels, each nvcc
+    # started before the first is awaited
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "fhe_ram_tpu_torch", "tools"))
     import time_bitwise_split_tree_predecessors as preds
+    import time_pack_tree_ntt_predecessors as preds12
     t0 = time.time()
-    pred_jobs = preds.start()
+    pred_jobs, pred12_jobs = preds.start(), preds12.start()
     ntt_cuda.ensure_built(verbose=args.verbose_build)
-    pred = preds.finish(pred_jobs)
+    pred, pred12 = preds.finish(pred_jobs), preds12.finish(pred12_jobs)
     emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 2),
           "sources": [f"fhe_ram_tpu_torch/csrc/{s}.cu" for s in ntt_cuda.SOURCES],
           "built_for_both_bodies": list(ntt_cuda.BODY_SOURCES),
-          "predecessors": [f"fhe_ram_tpu_torch/tools/{src}"
-                           for src, _ in preds.SPECS.values()],
+          "predecessors": sorted({f"fhe_ram_tpu_torch/tools/{spec[0]}" for spec in
+                                  (*preds.SPECS.values(), *preds12.SPECS.values())}),
           "target": "sm_90a"})
 
     # ---- each kernel against its plain version, at the read's shapes -------
@@ -497,15 +501,33 @@ def main():
         return check(f"{name}_two_pass", shape_note, make(tctx), same_as=make(ctx),
                      **kw)
 
-    # kernel 1: both directions at B = 36 (one address coordinate's GGSW)
+    # kernel 1 (one build for both contexts): both directions at B = 36 (one
+    # address coordinate's GGSW) and at the batched read's level-0 digits
+    # (x0, the 1024 digit polys of kernel 2's level 0 below), each under
+    # both contexts, the two-pass context's call bit-equal to the radix-2
+    # one's; beside each, the predecessor in that context's body
+    def check_ntt(direction, x_):
+        B_ = x_.shape[-2]
+        wrap = getattr(ntt_cuda, f"ntt_{direction}_cuda")
+        note = f"x{list(x_.shape)}"
+        for c_, body in ((ctx, "radix2"), (tctx, "two_pass")):
+            check(f"ntt_{direction}", note if c_ is ctx else f"{note} (two-pass context)",
+                  lambda: wrap(c_, x_),
+                  same_as=(lambda: wrap(ctx, x_)) if c_ is tctx else None,
+                  plain_reps=1 if B_ > 36 else 3,
+                  work=(B_ * poly_b * (1 + P), B_ * P * ntt_ops(n)) if direction == "fwd"
+                  else (B_ * poly_b * 2 * P, B_ * P * ntt_ops(n)),
+                  predecessor_fn=preds12.ntt_predecessor(pred12[f"ntt_{body}"], c_,
+                                                         direction, x_))
+
     x36 = limbs((36, n), bits=21)
-    check_bodies("ntt_fwd", "x[36,4096]", lambda c: lambda: ntt_cuda.ntt_fwd_cuda(c, x36))
-    s36 = ntt_cuda.ntt_fwd_cuda(ctx, x36)
-    check_bodies("ntt_inv", "x[3,36,4096]", lambda c: lambda: ntt_cuda.ntt_inv_cuda(c, s36))
+    x0 = limbs((W * R, T_ep, n))
+    for x_ in (x36, x0.reshape(-1, n)):
+        check_ntt("fwd", x_)
+        check_ntt("inv", ntt_cuda.ntt_fwd_cuda(ctx, x_))
 
     # kernel 2: level 0 (B = W*R = 256) without and with base, level 1 (B = 4)
     keys_ep = spectra((1, T_ep, M_ep, n)).reshape(P, 1, T_ep, M_ep, n)
-    x0 = limbs((W * R, T_ep, n))
     base0 = limbs((W * R, C, L, n), bits=17)
     check("fused_external_fold", f"x[{W*R},{T_ep},4096] keys[3,1,{T_ep},{M_ep},4096]",
           lambda: ntt_cuda.fused_external_fold(ctx, x0, keys_ep, L, C))
@@ -786,7 +808,9 @@ def main():
               f"cts[{M_},{nb},{C},{L},4096] keys[{lv_},3,{T_kf},{M_kf},4096]",
               lambda: ntt_cuda.fused_pack_tree(ctx, cts_p, keys_pt[5 - lv_:]),
               plain_reps=1,
-              per_level_fn=lambda: merge_levels(cts_p, keys_pt[5 - lv_:]))
+              per_level_fn=lambda: merge_levels(cts_p, keys_pt[5 - lv_:]),
+              predecessor_fn=preds12.pack_tree_predecessor(
+                  pred12["pack_tree"], ctx, cts_p, keys_pt[5 - lv_:].contiguous()))
     del cts_p
 
     # kernels 9-11: every shape the VM cycle gives them at PARAMS_2_18_READOPT
@@ -1222,11 +1246,13 @@ def main():
     cserver = ram_mod.FheRam(PAR, ekp, device=dev, composed=True)
     cctx = cserver.ctx
 
-    # the fold (kernels 2 and 5) is one build for both bodies; every other
-    # launch of a composed window must be a two-pass variant
-    composed_ok = ("fused_external_fold", "fused_external_fold_batched")
+    # the transform (kernel 1) and the fold (kernels 2 and 5) are one build
+    # for both bodies; every other launch of a composed window must be a
+    # two-pass variant
+    composed_ok = ("ntt_fwd", "ntt_inv", "fused_external_fold",
+                   "fused_external_fold_batched")
 
-    def only_two_pass(what, counts):
+    def only_composed(what, counts):
         off = {k: v for k, v in counts.items()
                if v and not (k.endswith("_two_pass") or k in composed_ok)}
         if off:
@@ -1249,7 +1275,7 @@ def main():
             fail(f"composed read at {idx}: differs from the fused server's read")
         worst_c = max(worst_c, decode(out, idx, "composed read", dctx=cctx))
     c_read_launches = dict(ntt_cuda.LAUNCHES)
-    only_two_pass("composed_read", c_read_launches)
+    only_composed("composed_read", c_read_launches)
     del fused_out
     emit({"phase": "composed_read", "ok": True, "reads": len(addrs),
           "addresses": addrs, "equal_to_fused_server": True,
@@ -1281,7 +1307,7 @@ def main():
         expect_launches(f"composed read_prepare_write at {idx}", l_rpw,
                         fused_external_fold=20)
         expect_launches(f"composed write at {idx}", l_wr,
-                        fused_external_fold=24, ntt_fwd_two_pass=2)
+                        fused_external_fold=24, ntt_fwd=2)
         c_cycle_l = {"read_prepare_write": l_rpw, "write": l_wr}
         c_rpw_ms.append(t_rpw)
         c_write_ms.append(t_wr)
@@ -1291,7 +1317,7 @@ def main():
         state = new_state
         data[idx * W: (idx + 1) * W] = new_word
     c_rmw_launches = dict(ntt_cuda.LAUNCHES)
-    only_two_pass("composed_rmw", c_rmw_launches)
+    only_composed("composed_rmw", c_rmw_launches)
     for idx, addr, _, _ in c_in:   # read back after all the writes
         worst_cr = max(worst_cr, decode(
             cserver.read(state, address_mod.prepare(cctx, addr)), idx,
@@ -1328,14 +1354,14 @@ def main():
     (c_outs, c_new), crb_ms, l_crb = launches_of(
         lambda: cserver.rmw_batch(state, rb_prep_b, rb_coeff_b, rb_w))
     c_batch_launches = dict(ntt_cuda.LAUNCHES)
-    only_two_pass("composed_batch", c_batch_launches)
+    only_composed("composed_batch", c_batch_launches)
     expect_launches("composed read_batch", l_cb, fused_external_fold_batched=2,
-                    ntt_fwd_two_pass=1, fused_external_fold=18)
-    expect_launches("composed spectral_cache", l_cc, ntt_fwd_two_pass=1)
+                    ntt_fwd=1, fused_external_fold=18)
+    expect_launches("composed spectral_cache", l_cc, ntt_fwd=1)
     expect_launches("composed read_batch with the cache", l_cbc,
                     fused_external_fold_batched=2, fused_external_fold=18)
     expect_launches("composed rmw_batch", l_crb, fused_external_fold_batched=4,
-                    fused_external_fold=28, ntt_fwd_two_pass=3)
+                    fused_external_fold=28, ntt_fwd=3)
     if not (torch.equal(c_got, f_batch) and torch.equal(c_got_c, f_batch)):
         fail("composed read_batch: differs from the fused server's")
     if not (torch.equal(c_outs, f_outs) and torch.equal(c_new.data, f_new.data)):
@@ -2045,14 +2071,10 @@ def main():
     nb0 = W * R // 2
     nbr = NB_RMW * W
     kernels = []
-    # kernel 1 in both bodies: the two-pass variants replace the same
-    # pallas_calls' FHERAM_MXU=0 bodies (_fwd_kernel, _inv_kernel)
-    for sfx, lines in (("", (454, 499)), ("_two_pass", (416, 429))):
-        kernels += [
-            entry(f"ntt_fwd{sfx}", "ntt.cu", lines[0], 0,
-                  36 * poly_b * (1 + P), 36 * P * ntt_ops(n)),
-            entry(f"ntt_inv{sfx}", "ntt.cu", lines[1], 0,
-                  36 * poly_b * 2 * P, 36 * P * ntt_ops(n))]
+    # kernel 1: one build for both bodies (it replaces both of the JAX
+    # package's, the MXU one and the FHERAM_MXU=0 kernels _fwd_kernel,
+    # _inv_kernel, :416, :429), at B = 36; every checked shape in per_shape
+    kernels += [entry("ntt_fwd", "ntt.cu", 454, 0), entry("ntt_inv", "ntt.cu", 499, 0)]
     # kernels 2 and 5: one build for both bodies (it replaces the MXU and
     # the FHERAM_MXU=0 branches of _fold_kernel_factory alike); every
     # checked shape, the timed-only 2^24 level 0 too, in per_shape
@@ -2108,8 +2130,9 @@ def main():
             k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",
                                                 "library_ms", "bound_ms")}
                               for r in checks[k["name"]]]
-        if k["name"] in ("fused_external_fold", "fused_external_fold_batched",
-                         "fused_pack_merge", "fused_trace", "fused_split"):
+        if k["name"] in ("ntt_fwd", "ntt_inv", "fused_external_fold",
+                         "fused_external_fold_batched", "fused_pack_merge", "fused_trace",
+                         "fused_split"):
             k["per_shape"] = [{f: r.get(f) for f in ("shape", "ms", "plain_ms", "bound_ms",
                                                      "bound_by")}
                               for r in checks[k["name"]] + timed_only.get(k["name"], [])]

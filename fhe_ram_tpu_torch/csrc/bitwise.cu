@@ -110,30 +110,6 @@ struct BitwiseRow {
   }
 };
 
-// This block has stored its part of a level-1 row: count it at the row's
-// unit.  Every thread's stores precede the barrier, thread 0's release
-// follows it.
-__device__ __forceinline__ void unit_arrive(unsigned* count) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    cuda::atomic_ref<unsigned, cuda::thread_scope_device> n(*count);
-    n.fetch_add(1u, cuda::memory_order_release);
-  }
-}
-
-// Wait until `target` blocks have arrived at the unit; what they stored is
-// then visible to this block's loads through L2.
-__device__ __forceinline__ void unit_wait(unsigned* count, unsigned target) {
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<unsigned, cuda::thread_scope_device> n(*count);
-    unsigned polls = 0;
-    while (n.load(cuda::memory_order_acquire) < target)
-      if (++polls == (1u << 24)) __trap();
-  }
-  __syncthreads();
-}
-
 // Every row argument 16-byte aligned.  hi, lo: int32[G, 2, C2, L, n]; keys:
 // uint32[W, NG + 1, P, T, M, n], per bit one key per source group then
 // rs1's; out: int32[W, G, C2, L, n]; inner: int32[W, G, 2, C2, L, n];

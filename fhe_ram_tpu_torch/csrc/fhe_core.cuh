@@ -1,6 +1,10 @@
 // Shared device code of the Hopper kernels of the encrypted RAM: modular
-// arithmetic, the 4096-point negacyclic NTT in shared memory, and the
-// "row fold" that every fused kernel is built from.
+// arithmetic, the 4096-point negacyclic NTT in shared memory in two bodies,
+// and the "row fold" the first fused kernels were built from.  Kernel 12
+// (external.cu) runs the bodies and the row fold's first half
+// (prime_residues); the rest serves the predecessors kept for timing in
+// fhe_ram_tpu_torch/tools/.  Every other kernel of csrc/ but the
+// collectives runs on fold_body.cuh.
 //
 // Replaces (function, not structure): fhe_ram_tpu/ops/ntt_pallas.py
 //   _fwd_tile_mxu / _inv_tile_mxu   -> ntt_fwd_smem / ntt_inv_smem
@@ -278,8 +282,9 @@ __device__ __forceinline__ void ntt_inv_smem_2pass(uint32_t* a, int npoly,
 }
 
 // The body every kernel of a translation unit runs: the two-pass body when
-// the unit is built with -DFHE_NTT_TWO_PASS (ops/ntt_cuda.py builds ntt.cu,
-// fold.cu and external.cu once with it and once without), radix-2 else.
+// the unit is built with -DFHE_NTT_TWO_PASS (ops/ntt_cuda.py builds
+// external.cu, and tools/ the predecessors of ntt.cu and fold.cu, once with
+// it and once without), radix-2 else.
 __device__ __forceinline__ void ntt_fwd_body(uint32_t* a, int npoly, int log_n,
                                              const uint32_t* __restrict__ tw,
                                              uint32_t p, uint32_t mu40) {
@@ -338,9 +343,9 @@ struct ClusterRow {
 };
 
 // GridRow: cs consecutive blocks of a cooperative launch (all blocks of the
-// grid are resident, so a block may wait for another).  The pack tree
-// (pack_tree.cu) and the split tree's predecessor
-// (tools/split_tree_predecessor.cu), whose levels differ in rows and so in
+// grid are resident, so a block may wait for another).  The predecessors
+// of the pack tree and the split tree (tools/pack_tree_predecessor.cu,
+// tools/split_tree_predecessor.cu), whose levels differ in rows and so in
 // cs, which a cluster dimension fixed at launch cannot follow.  The barrier is a counter in
 // device memory, zero at launch and used by this group alone: every block
 // adds one and waits until cs more have arrived than at the last barrier.
@@ -405,6 +410,11 @@ struct TraceStepGlue : CoefficientDigits {
 // the prepared key rows summed over T, inverse NTT, exact 3-prime Garner
 // CRT, balanced base-2^9 digit split, fold into base-2^17 limbs,
 // out = normalize(base + sign * fold).
+//
+// fold_row, its Glues, merge_row, split_row, GridRow, UnitSlot and
+// TreeLevels serve the predecessors kept for timing in
+// fhe_ram_tpu_torch/tools/ only: since the pack tree (kernel 8) moved onto
+// csrc/fold_body.cuh, no kernel of csrc/ runs them.
 //
 // Glue supplies  int digit(int t, int i)          -- digit poly t at index i
 //                int base(int c2, int l, int i)   -- what is added before
@@ -778,8 +788,8 @@ static inline int fold_launch(void (*kernel)(KArgs...), int rows,
 }
 
 // ---- the one-launch tree kernels on fold_row -------------------------------
-// (pack_tree.cu and tools/split_tree_predecessor.cu; split_tree.cu runs on
-// fold_body.cuh.)
+// (tools/pack_tree_predecessor.cu and tools/split_tree_predecessor.cu;
+// pack_tree.cu and split_tree.cu run on fold_body.cuh.)
 // A tree kernel walks all levels of a split or pack tree in one cooperative
 // launch: every block of the grid is resident, each level's rows are dealt
 // over groups of blocks (GridRow), and a grid-wide barrier separates the

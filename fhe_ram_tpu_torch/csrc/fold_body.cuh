@@ -1,20 +1,23 @@
 // The fold body of csrc/fold.cu, shared by the kernels built on it: the
 // fold (kernels 2 and 5, fold.cu), the pack merge (kernel 4,
 // pack_merge.cu), the trace chain (kernel 3, trace.cu), the split level
-// (kernel 6, split.cu), the split tree (kernel 7, split_tree.cu), the
-// bitwise group (kernel 9, bitwise.cu), the blind rotation (kernel 10,
-// blind_rotate.cu) and the carry-DP chain (kernel 11, dp_chain.cu).
-// fold.cu's note sets out the design; this header holds its device
-// functions: the Shoup and lazy arithmetic, the three register layouts and
-// the swizzle of the exchange buffers, the radix-16 transforms (`forward`
-// takes a loader of the digit poly's coefficients, `inverse`), the key
-// products, the Garner and the Garner/fold/carry step over distributed
-// shared memory (`garner_fold` takes the base to add and what to do with
-// each normalized limb as functors), one trace step of a row
-// (`trace_step`, which kernels 3, 6 and 7 share), one CMux step of a row
-// (`cmux_step`, which kernels 9, 10 and 11 share), a barrier over the
-// clusters of a co-resident launch (`OpBarrier`), and the cluster
-// launches.
+// (kernel 6, split.cu), the split tree (kernel 7, split_tree.cu), the pack
+// tree (kernel 8, pack_tree.cu), the bitwise group (kernel 9, bitwise.cu),
+// the blind rotation (kernel 10, blind_rotate.cu), the carry-DP chain
+// (kernel 11, dp_chain.cu) and the NTT (kernel 1, ntt.cu: the transforms
+// alone).  fold.cu's note sets out the design; this header holds its
+// device functions: the Shoup and lazy arithmetic, the three register
+// layouts and the swizzle of the exchange buffers, the radix-16 transforms
+// (`forward_regs` / `forward` take a loader of the digit poly's
+// coefficients, `inverse`), the key products, the Garner and the
+// Garner/fold/carry step over distributed shared memory (`garner_fold`
+// takes the base to add and what to do with each normalized limb as
+// functors), one trace step of a row (`trace_step`, which kernels 3, 6 and
+// 7 share), the pack merges a cluster walks (`merge_rows`, which kernels 4
+// and 8 share), one CMux step of a row (`cmux_step`, which kernels 9, 10
+// and 11 share), a barrier over the clusters of a co-resident launch
+// (`OpBarrier`), the per-row device counters of kernels 8 and 9
+// (`unit_arrive`, `unit_wait`), and the cluster launches.
 #pragma once
 
 #include "fhe_core.cuh"
@@ -152,23 +155,22 @@ __device__ __forceinline__ uint32_t prime(const FheConsts& c, int pi) {
   return pi == 0 ? c.p[0] : pi == 1 ? c.p[1] : c.p[2];
 }
 
-// Forward transform of one digit poly into this thread's 16 spectrum words
-// spec_t[r * 256 + t] (layout L2); load(i): the poly's coefficient i (any
-// int32), called once for each of this thread's 16 coefficients of layout
-// L0 before the first barrier; a and b: the exchange buffers, equal when
-// only one is free.  own0[s]: this thread's pass-0 twiddle of rl = 0 at
-// stage s (j = t), psi_t = psi^t.
+// Forward transform of one digit poly into this thread's 16 registers v[r]
+// = coefficient (t << 4) | r of the spectrum (layout L2), in [0, 2p);
+// load(i): the poly's coefficient i (any int32), called once for each of
+// this thread's 16 coefficients of layout L0 before the first barrier; a
+// and b: the exchange buffers, equal when only one is free.  own0[s]: this
+// thread's pass-0 twiddle of rl = 0 at stage s (j = t), psi_t = psi^t.
 template <int kBlocks, class Load>
-__device__ __forceinline__ void forward(const Load& load, uint32_t* spec_t, uint32_t* a,
-                                        uint32_t* b, const uint2 own0[4], uint2 psi_t,
-                                        uint32_t p, const FoldTables& tb, int pi) {
+__device__ __forceinline__ void forward_regs(const Load& load, uint32_t v[16], uint32_t* a,
+                                             uint32_t* b, const uint2 own0[4], uint2 psi_t,
+                                             uint32_t p, const FoldTables& tb, int pi) {
   const int t = threadIdx.x;
   // at 128 registers (two blocks an SM) the table pointers are made here:
   // held across the row loop, they spilled
   if (kBlocks == 2) pi = fresh(pi);
   const uint2* fwd = tb.fwd + pi * FOLD_N;
   const uint32_t lift = ((0x80000000u + p - 1) / p) * p;   // int32 + lift >= 0
-  uint32_t v[16];
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const int xv = load(t | lay_r<0>(r));
@@ -194,6 +196,17 @@ __device__ __forceinline__ void forward(const Load& load, uint32_t* spec_t, uint
   dif16(v, p, [&](uint32_t x, int s, int rl) {
     return rl ? shoup(x, ldg_pair(fwd + 4096 - (16 >> s) + rl), p) : lazy_sub(x, 2 * p);
   });
+}
+
+// forward_regs into this thread's 16 spectrum words spec_t[r * 256 + t] of
+// shared memory (what the key products read).
+template <int kBlocks, class Load>
+__device__ __forceinline__ void forward(const Load& load, uint32_t* spec_t, uint32_t* a,
+                                        uint32_t* b, const uint2 own0[4], uint2 psi_t,
+                                        uint32_t p, const FoldTables& tb, int pi) {
+  const int t = threadIdx.x;
+  uint32_t v[16];
+  forward_regs<kBlocks>(load, v, a, b, own0, psi_t, p, tb, pi);
 #pragma unroll
   for (int r = 0; r < 16; ++r) spec_t[r * FOLD_THREADS + t] = v[r];
 }
@@ -401,9 +414,9 @@ struct SplitStore {
 // hit 32 banks.  pending: as in the merge, this block has arrived at
 // "residues read" and not yet waited; the wait before the staging is also
 // the barrier after the previous step, whose output the cluster wrote.
-// pack_merge.cu keeps its own row loop of the same shape: run through this
-// function (its staging and base as hooks) the merge was slower on an H100
-// than with its own loop, at every shape timed.
+// The merge keeps its own loop of the same shape (merge_rows): run through
+// this function (its staging and base as hooks) it was slower on an H100,
+// at every shape timed.
 template <int kBlocks, class Step>
 __device__ __forceinline__ void trace_step(const Step& st, int Td, bool& pending,
                                            uint32_t* smem, const FoldShape& sh,
@@ -472,6 +485,168 @@ __device__ __forceinline__ void trace_step(const Step& st, int Td, bool& pending
     cluster_arrive();   // done reading the cluster's residues, done writing
     pending = true;     // this component of the output
   }
+}
+
+// A word of a row a merge reads: through the read-only path (__ldg) where
+// no block of the launch writes the row (kernel 4), through L2 (__ldcg)
+// where an earlier level of the same launch wrote it (kernel 8).
+template <bool kL2>
+__device__ __forceinline__ int ld_row(const int* a) {
+  return kL2 ? __ldcg(a) : __ldg(a);
+}
+
+// (X^k b)[j] of a poly b of such a row, 0 <= k < 2n: fhe_core.cuh rot_at,
+// through L2 for kernel 8.
+template <bool kL2>
+__device__ __forceinline__ int rot_row(const int* b, int j, int k) {
+  if (!kL2) return rot_at(b, j, k, FOLD_N);
+  const int kk = k & (FOLD_N - 1);
+  const int v = j < kk ? -__ldcg(b + FOLD_N - kk + j) : __ldcg(b + j - kk);
+  return k >= FOLD_N ? -v : v;
+}
+
+// The base of a merge's carry at (c2, l, i): u = A + X^t B, plus
+// sigma_g(v) at the b component; A, B: [C2, L, n] of the pair.
+template <bool kL2>
+struct MergeBase {
+  const int* A;
+  const int* B;
+  int t_rot, ginv, b_comp;
+  __device__ __forceinline__ int operator()(int c2, int, int i, long long at) const {
+    const int* a = A + (at - i);
+    const int* b = B + (at - i);
+    int u = ld_row<kL2>(a + i) + rot_row<kL2>(b, i, t_rot);
+    if (c2 == b_comp) {
+      bool neg;
+      const int src = sigma_src(i, ginv, FOLD_N, neg);
+      const int v = ld_row<kL2>(a + src) - rot_row<kL2>(b, src, t_rot);
+      u += neg ? -v : v;
+    }
+    return u;
+  }
+};
+
+// The pack-tree merges a block's cluster walks, this block's part of each:
+//   out = normalize(u + KS(sigma_g(v))),  u, v = A +- X^t B,
+// rows [C2, L, n] (limbs up to 2^17: a tree's first level takes the
+// pre-scaled, unnormalized leaves), the digits the top Td limbs of
+// sigma_g(v)'s mask components (T = rank * Td), sign -1; the items r,
+// r + clusters, ... below `items`.  The arguments are kernel 4's own (one
+// level: row pair r is row r of A, B and out, one key, one t and g), and
+// the walk w maps them to item r's through its handle it = w.item(r),
+// made once an item:
+//   wait(it), arrive(it)             before and after the item
+//   row(it)                          the row of the buffers it reads and
+//                                    writes, made where it is used (fresh)
+//   a(it, A), b(it, B), dst(it, out) the buffers of its rows and its output
+//   keys(it, key)                    prime 0's key rows, uint32[P, T, M, n]
+//   t_rot(it, t), ginv(it, g)        t in [0, 2n), g^-1 mod 2n
+// kernel 4's walk returns what it is given (pack_merge.cu PairRows), kernel
+// 8's the level's (pack_tree.cu TreeRows).  Each block stages digit poly tt
+// = (mask component tt / Td, limb tt % Td) of v = A - X^t B in the third
+// residue poly, free while the digits are transformed, in natural order:
+// thread t loads coefficients t + 256 r, so the loads of A and of the
+// rotated B (a shift with a sign flip at the wrap) stay coalesced;
+// forward() then gathers V[sigma_src(i)] with sigma's sign: g^-1 is odd, so
+// a warp's 32 gathers hit 32 banks.  The base u + sigma_g(v) at the b
+// component is MergeBase, gathered in the Garner step.  The loop over the
+// items is inside, and its invariants before it, as in kernel 4's own loop
+// before both kernels shared it: a step called once an item (rank, prime
+// and buffers made inside, or handed in) ran kernel 4 3 % slower on an H100
+// at 127 / 160 registers, or spilled 8 bytes at 128; this form builds to
+// kernel 4's 128 / 218 and runs at its time.  Nor the trace's step with
+// hooks: the merge was slower through trace_step at every shape timed.
+template <int kBlocks, bool kL2, class Walk>
+__device__ __forceinline__ void merge_rows(const Walk& w, const int* __restrict__ A,
+                                           const int* __restrict__ B,
+                                           const uint32_t* __restrict__ key, int* out,
+                                           int items, int t_rot, int ginv, int Td,
+                                           FoldShape sh, FheConsts c, FoldTables tb) {
+  extern __shared__ uint32_t smem[];
+  const int t = threadIdx.x;
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int pi = rank % FHE_P, grp = rank / FHE_P;
+  const int c2_per = sh.C2 / (sh.cs / FHE_P);
+  const int T = sh.T, Lk = sh.Lk, L = sh.Lout;
+  uint32_t* spec = smem;                    // [T][16][256], thread-private words
+  uint32_t* R = smem + T * FOLD_N;          // [max(Lk, 3)][n] residues / exchange
+  int* V = reinterpret_cast<int*>(R + 2 * FOLD_N);   // the staged v
+  const uint32_t p = prime(c, pi);
+  const int row_polys = sh.C2 * L;
+  bool pending = false;   // arrived at "residues read", not yet waited
+  for (int r = blockIdx.x / sh.cs; r < items; r += gridDim.x / sh.cs) {
+    const auto it = w.item(r);
+    w.wait(it);
+    // a row's pointers are made where they are used (fresh r): held across
+    // the transforms, they spilled at 128 registers
+    if (pending) {   // the cluster is done with R
+      cluster_wait();
+      pending = false;
+    }
+    uint2 own0[4];   // j = t at stages 0-3
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      own0[s] = ldg_pair(tb.fwd + pi * FOLD_N + 4096 - (4096 >> s) + t);
+    const uint2 psi_t = ldg_pair(tb.psi_lo + pi * FOLD_THREADS + t);
+    for (int tt = 0; tt < T; ++tt) {
+      // every thread is past the previous forward's gathers: they precede
+      // its first barrier
+      const long long at =
+          (long long)(fresh(w.row(it)) * row_polys + (tt / Td) * L + tt % Td) * FOLD_N;
+      const int* a = w.a(it, A) + at;
+      const int* b = w.b(it, B) + at;
+      const int t_it = w.t_rot(it, t_rot);
+      // four loads of A and B in flight a thread: sixteen spilled at 128
+      // registers
+#pragma unroll 4
+      for (int q = 0; q < 16; ++q) {
+        const int j = t | lay_r<0>(q);
+        V[j] = ld_row<kL2>(a + j) - rot_row<kL2>(b, j, t_it);
+      }
+      __syncthreads();
+      const int g_it = w.ginv(it, ginv);
+      forward<kBlocks>(
+          [&](int i) {
+            bool neg;
+            const int v = V[sigma_src(i, g_it, FOLD_N, neg)];
+            return neg ? -v : v;
+          },
+          spec + tt * 16 * FOLD_THREADS, R, R + FOLD_N, own0, psi_t, p, tb, pi);
+    }
+    __syncthreads();   // the last exchange's reads are done: R is free
+
+    uint2 own2[4];   // j = t at stages 8-11
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      own2[s] = ldg_pair(tb.inv + pi * FOLD_N + (256 << s) - 1 + t);
+    const uint2 ipsi_t = ldg_pair(tb.ipsi_lo + pi * FOLD_THREADS + t);
+    const uint32_t* kp = w.keys(it, key) + (long long)pi * T * sh.M * FOLD_N;
+    for (int c2 = grp * c2_per; c2 < (grp + 1) * c2_per; ++c2) {
+      for (int lk = 0; lk < Lk; ++lk) {
+        uint32_t v[16];
+        products(v, spec, kp + (long long)(c2 * Lk + lk) * FOLD_N, T,
+                 (long long)sh.M * FOLD_N, p,
+                 pi == 0 ? c.mu64[0] : pi == 1 ? c.mu64[1] : c.mu64[2]);
+        if (pending) {   // the previous component's residues are read
+          cluster_wait();
+          pending = false;
+        }
+        uint32_t* y = R + lk * FOLD_N;
+        inverse(v, lk + 1 < Lk ? y + FOLD_N : y, y, own2, ipsi_t, p, tb, pi);
+      }
+      cluster_arrive();   // every block's residues of component c2 are in
+      cluster_wait();
+      const long long row = (long long)(fresh(w.row(it)) * row_polys) * FOLD_N;
+      garner_fold(R, grp, pi, c2,
+                  MergeBase<kL2>{w.a(it, A) + row, w.b(it, B) + row, w.t_rot(it, t_rot),
+                                 w.ginv(it, ginv), sh.C2 - 1},
+                  RowStore{w.dst(it, out) + row}, sh, c, tb);
+      cluster_arrive();   // done reading the cluster's residues
+      pending = true;
+    }
+    w.arrive(it);
+  }
+  if (pending) cluster_wait();   // no block leaves while another reads its R
 }
 
 // The base of a CMux: lo, a row [C2, L, n] read through L2 (another
@@ -640,6 +815,31 @@ struct OpBarrier {
     __syncthreads();
   }
 };
+
+// A block has stored its part of a row: count it at the row's counter
+// (kernels 8 and 9: a row waits on the counters of the rows it reads).
+// Every thread's stores precede the barrier, thread 0's release follows it.
+__device__ __forceinline__ void unit_arrive(unsigned* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> n(*count);
+    n.fetch_add(1u, cuda::memory_order_release);
+  }
+}
+
+// Wait until `target` blocks have arrived at a counter; what they stored
+// is then visible to this block's loads through L2.  A spin that outlasts
+// 2^24 polls traps, as OpBarrier's does.
+__device__ __forceinline__ void unit_wait(unsigned* count, unsigned target) {
+  if (threadIdx.x == 0) {
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> n(*count);
+    unsigned polls = 0;
+    while (n.load(cuda::memory_order_acquire) < target)
+      if (++polls == (1u << 24)) __trap();
+  }
+  __syncthreads();
+}
 
 // Launch `kernel` as `clusters` thread block clusters of cs blocks of
 // FOLD_THREADS threads with `smem` bytes of dynamic shared memory each;

@@ -26,7 +26,7 @@
 // cudaOccupancyMaxActiveClusters.  A cluster's size cannot change between
 // levels (a single write's levels have 4..128 rows, a batched RMW's of 16
 // 64..2048), so the wrapper picks one for the whole tree from its shape
-// (ops/ntt_cuda._split_tree_layout).  Row r of level l is node j = r mod
+// (ops/ntt_cuda._tree_layout).  Row r of level l is node j = r mod
 // 2^l of root b = r / 2^l; its children land at c0 = dst + (b * dst_nodes
 // + j) * row and c1 = c0 + 2^l * row.  A level reads rotated positions of
 // rows the next would overwrite, so levels alternate between two buffers,

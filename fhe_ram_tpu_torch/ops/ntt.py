@@ -17,18 +17,18 @@ transform (ops/ntt_cuda.py, csrc/ntt.cu) matches it bit for bit, and the
 fused kernels consume keys prepared by either.  `ntt_inv` returns centered
 residues in [-(p-1)/2, (p-1)/2].
 
-Two transform bodies run the same stages in the kernels (csrc/fhe_core.cuh)
-and give the same integers, spectra included, so keys prepared under one
-serve the other.  A context names its body:
+Two transform bodies (csrc/fhe_core.cuh) give the same integers, spectra
+included, so keys prepared under one serve the other; kernel 12
+(external.cu) is built in both, and the transform and fold kernels run
+the fold body's radix-16 transforms (csrc/fold_body.cuh), one build for
+both.  A context names its body, and with it the RAM's routes:
 
-  "radix2"    one barrier a stage; every kernel has it.  The RAM routes
-              each pack merge, trace and split level through its fused
-              kernel (fused_path_active(ctx) is True).
+  "radix2"    the RAM routes each pack merge, trace and split level
+              through its fused kernel (fused_path_active(ctx) is True).
   "two_pass"  the 64 x 64 block in two passes, columns then rows (the
-              counterpart of the JAX package's FHERAM_MXU=0 body).  Only the
-              transform and the fold kernels have it, so the RAM takes its
-              composed routes: a merge, a trace step or a split level is
-              torch glue around one fold launch.  The counterpart of
+              counterpart of the JAX package's FHERAM_MXU=0 body): the RAM
+              takes its composed routes, a merge, a trace step or a split
+              level torch glue around one fold launch.  The counterpart of
               FHERAM_MXU=0, which fixes body and routing together too.
 """
 

@@ -20,17 +20,17 @@ Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Twelve kernels (csrc/):
 and the two collectives of the row-sharded pack, whose wrappers live in
 parallel/collective.py (collective.cu): ring_all_gather, exchange.
 
-Transform bodies: ntt.cu and external.cu are built twice, once with the
-radix-2 body and once with the two-pass 64 x 64 body (-DFHE_NTT_TWO_PASS,
-csrc/fhe_core.cuh); their wrappers launch the variant of the context's body
-(ops/ntt.py) and count it under their own name, with "_two_pass" appended
-for the second body.  fold.cu (kernels 2 and 5) is built once: its
-transform is its own (three radix-16 passes in registers, fold_body.cuh,
-which pack_merge.cu, trace.cu, split.cu, blind_rotate.cu and dp_chain.cu
-share), it serves both bodies' contexts with the same integers and counts
-under its own name.
-The other kernels have the radix-2 body only: a two-pass context routes
-around them (ops.ntt.fused_path_active).  Helpers that build the trace
+Transform bodies: external.cu (kernel 12, on no path) is built twice, once
+with the radix-2 body and once with the two-pass 64 x 64 body
+(-DFHE_NTT_TWO_PASS, csrc/fhe_core.cuh); its wrapper launches the variant
+of the context's body (ops/ntt.py) and counts it under its own name, with
+"_two_pass" appended for the second body.  ntt.cu (kernel 1) and fold.cu
+(kernels 2 and 5) are built once: their transforms are the fold body's
+(three radix-16 passes in registers, fold_body.cuh, which every other
+kernel but the collectives shares), they serve both bodies' contexts with
+the same integers and count under their own names.
+The fused kernels 3, 4 and 6-11 serve the radix-2 context only: a two-pass
+context routes around them (ops.ntt.fused_path_active).  Helpers that build the trace
 step, the split level and the pack merge from one fold (trace_step,
 split_level, pack_merge_level) serve the composed routes with the fold
 kernel and the plain versions with its plain version.
@@ -76,7 +76,7 @@ SOURCES = ("ntt", "fold", "external", "trace", "pack_merge", "split",
            "split_tree", "pack_tree", "blind_rotate", "dp_chain", "bitwise",
            "collective")
 # the sources built once a transform body; the others are built once
-BODY_SOURCES = ("ntt", "external")
+BODY_SOURCES = ("external",)
 _BODY_FLAGS = {"radix2": [], "two_pass": ["-DFHE_NTT_TWO_PASS"]}
 
 _MAX_L = 8        # FHE_MAX_L of csrc/fhe_core.cuh
@@ -104,10 +104,11 @@ _FOLD_MAX_LK = 8  # FOLD_MAX_LK of csrc/fold.cu: key limbs a fold takes
 
 # Kernel launches since the last reset_launches(): one count per wrapper,
 # incremented where the wrapper launches its kernel and nowhere else.
-# The wrappers of both bodies count the two-pass variant apart.
-_BODY_WRAPPERS = ("ntt_fwd", "ntt_inv", "fused_external")
+# The wrapper of both bodies counts the two-pass variant apart.
+_BODY_WRAPPERS = ("fused_external",)
 LAUNCHES = dict.fromkeys(
-    _BODY_WRAPPERS + tuple(f"{w}_two_pass" for w in _BODY_WRAPPERS)
+    ("ntt_fwd", "ntt_inv") + _BODY_WRAPPERS
+    + tuple(f"{w}_two_pass" for w in _BODY_WRAPPERS)
     + ("fused_external_fold", "fused_external_fold_batched",
        "fused_trace", "fused_pack_merge", "fused_split", "fused_split_tree",
        "fused_pack_tree", "fused_blind_rotate", "fused_dp_chain",
@@ -167,7 +168,14 @@ class _TraceSteps(ctypes.Structure):
     _fields_ = [("count", ctypes.c_int), ("ginv", ctypes.c_int * _MAX_STEPS)]
 
 
+class _PackLevels(ctypes.Structure):
+    _fields_ = [("count", ctypes.c_int), ("ginv", ctypes.c_int * _MAX_STEPS),
+                ("rot", ctypes.c_int * _MAX_STEPS)]
+
+
 class _TreeLevels(ctypes.Structure):
+    """fhe_core.cuh's TreeLevels, the pack tree's predecessor's level table
+    (tools/)."""
     _fields_ = [("count", ctypes.c_int), ("cs", ctypes.c_int * _MAX_STEPS),
                 ("ginv", ctypes.c_int * _MAX_STEPS),
                 ("rot", ctypes.c_int * _MAX_STEPS)]
@@ -278,8 +286,8 @@ def build_kernels(verbose: bool = False):
     vp, ci, cip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     libs = {key: ctypes.CDLL(str(path)) for key, path in paths.items()}
     sigs = {
-        ("ntt", "fhe_ntt_fwd"): [vp, vp, ci, _Consts, _Tables, vp],
-        ("ntt", "fhe_ntt_inv"): [vp, vp, ci, _Consts, _Tables, vp],
+        ("ntt", "fhe_ntt_fwd"): [vp, vp, ci, ci, _Consts, _FoldTables, vp],
+        ("ntt", "fhe_ntt_inv"): [vp, vp, ci, ci, _Consts, _FoldTables, vp],
         ("fold", "fhe_fold"): [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, _FoldShape,
                                _Consts, _FoldTables, vp],
         ("external", "fhe_external"): [vp, vp, vp, ci, _FoldShape, _Consts,
@@ -293,10 +301,9 @@ def build_kernels(verbose: bool = False):
         ("split_tree", "fhe_split_tree_clusters"): [_FoldShape, ci, cip],
         ("split_tree", "fhe_split_tree"): [vp, vp, vp, vp, vp, ci, ci, _SplitLevels,
                                            ci, _FoldShape, _Consts, _FoldTables, vp],
-        ("pack_tree", "fhe_pack_tree_blocks"): [_FoldShape, ci, cip],
-        ("pack_tree", "fhe_pack_tree"): [vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                         _TreeLevels, _FoldShape, _Consts,
-                                         _Tables, vp],
+        ("pack_tree", "fhe_pack_tree_clusters"): [_FoldShape, ci, cip],
+        ("pack_tree", "fhe_pack_tree"): [vp, vp, vp, vp, vp, ci, ci, ci, ci, _PackLevels,
+                                         ci, _FoldShape, _Consts, _FoldTables, vp],
         ("blind_rotate", "fhe_blind_rotate"): [vp, vp, vp, vp, ci, ci, _RotSteps,
                                                ci, ci, _FoldShape, _Consts,
                                                _FoldTables, vp],
@@ -455,19 +462,11 @@ def ntt_fwd_cuda(ctx: NTTContext, x):
     if not _use_kernel(ctx, x):
         return ntt_fwd_plain(ctx, x)
     n = ctx.n
-    P = len(ctx.primes)
     lead = tuple(x.shape[:-1])
-    x2 = _require(x.reshape(-1, n), "x")
-    B = x2.shape[0]
-    out = torch.empty((P, B, n), dtype=I32, device=x.device)
-    if B:
-        fn = _lib("ntt", ctx.body).fhe_ntt_fwd
-        with torch.cuda.device(x.device):
-            err = fn(x2.data_ptr(), out.data_ptr(), B, _consts(ctx),
-                     _tables(ctx, x.device), _stream())
-        _check(err, "ntt_fwd")
-        LAUNCHES[_counter("ntt_fwd", ctx)] += 1
-    return out.reshape((P,) + lead + (n,))
+    out = _launch_ntt(ctx, "fwd", x.reshape(-1, n))
+    if out.shape[1]:
+        LAUNCHES["ntt_fwd"] += 1
+    return out.reshape((len(ctx.primes),) + lead + (n,))
 
 
 def ntt_inv_cuda(ctx: NTTContext, x):
@@ -475,20 +474,39 @@ def ntt_inv_cuda(ctx: NTTContext, x):
     Plain version: ops.ntt.ntt_inv_plain."""
     if not _use_kernel(ctx, x):
         return ntt_inv_plain(ctx, x)
+    shape = tuple(x.shape)
+    out = _launch_ntt(ctx, "inv", x.reshape(len(ctx.primes), -1, ctx.n))
+    if out.shape[1]:
+        LAUNCHES["ntt_inv"] += 1
+    return out.reshape(shape)
+
+
+def _launch_ntt(ctx: NTTContext, direction: str, x, blocks: int | None = None):
+    """One launch of csrc/ntt.cu on x int32[B, N] ("fwd") or int32[P, B, N]
+    ("inv"), not counted (the wrappers count it); returns int32[P, B, N].
+    The same build serves every context's body.  One (polynomial, prime)
+    item a block, and the instantiation (the blocks an SM its registers are
+    budgeted for) by the items: 2 (up to 128 registers a thread) while they
+    fit the card at two blocks an SM, else 4 (64).  On an H100 either was
+    the faster there: 0.0092 against 0.0106 ms for the inverse at 36 polys,
+    0.0628 against 0.0660 for the forward at 1024.  blocks given here
+    overrides the choice (tools/time_pack_tree_ntt_predecessors.py times
+    both)."""
     n = ctx.n
     P = len(ctx.primes)
-    shape = tuple(x.shape)
-    x2 = _require(x.reshape(P, -1, n), "x")
-    B = x2.shape[1]
+    x = _require(x, "x")
+    if direction == "inv":
+        x = _aligned16(x)
+    B = x.shape[-2]
     out = torch.empty((P, B, n), dtype=I32, device=x.device)
     if B:
-        fn = _lib("ntt", ctx.body).fhe_ntt_inv
         with torch.cuda.device(x.device):
-            err = fn(x2.data_ptr(), out.data_ptr(), B, _consts(ctx),
-                     _tables(ctx, x.device), _stream())
-        _check(err, "ntt_inv")
-        LAUNCHES[_counter("ntt_inv", ctx)] += 1
-    return out.reshape(shape)
+            err = getattr(_lib("ntt"), f"fhe_ntt_{direction}")(
+                x.data_ptr(), out.data_ptr(), B,
+                blocks or (2 if P * B <= 2 * _sms(x.device) else 4),
+                _consts(ctx), _fold_tables(ctx, x.device), _stream())
+        _check(err, f"ntt_{direction}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -570,6 +588,14 @@ def _fold_cs(rows: int, c2: int) -> int:
 _sm_count = {}
 
 
+def _sms(device) -> int:
+    """The SMs of the card `device` names."""
+    index = torch.device(device).index or 0
+    if index not in _sm_count:
+        _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_count[index]
+
+
 def _fold_blocks(blocks_total: int, T: int, Lk: int, device) -> int:
     """The instantiation of csrc/fold.cu (or of a kernel on the same body:
     pack_merge.cu, trace.cu, split.cu, split_tree.cu, bitwise.cu,
@@ -579,11 +605,8 @@ def _fold_blocks(blocks_total: int, T: int, Lk: int, device) -> int:
     there are more blocks than SMs; else 1
     (up to 255 registers: a launch that holds one block an SM anyway, or a
     short one, runs the single block faster)."""
-    index = torch.device(device).index or 0
-    if index not in _sm_count:
-        _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
     two_fit = 2 * ((T + Lk) * 4 * 4096 + 1024) <= _SM_SMEM
-    return 2 if two_fit and blocks_total > _sm_count[index] else 1
+    return 2 if two_fit and blocks_total > _sms(device) else 1
 
 
 def _fold_tables(ctx: NTTContext, device) -> _FoldTables:
@@ -952,10 +975,9 @@ def fused_split(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
 # kernels 7 and 8: the one-launch split tree and pack tree
 # --------------------------------------------------------------------------
 
-# occupancy queries: (source, T, mc, log_n, device index) -> co-resident
-# blocks of the pack tree; (source, cs, blocks, polys, device index) ->
+# occupancy queries: (source, cs, blocks, polys, device index) ->
 # co-resident clusters of a cooperative clustered launch on the fold body
-# (the split tree, the bitwise group, the carry chain)
+# (the split tree, the pack tree, the bitwise group, the carry chain)
 _resident = {}
 
 
@@ -975,48 +997,38 @@ def _max_clusters(source: str, sh: _FoldShape, blocks: int, polys: int, device) 
     return _resident[key]
 
 
-def _cooperative_shape(source: str, T: int, M: int, C2: int, L: int, sign: int,
-                       n: int, device):
-    """The shape argument of a cooperative launch of `source` (cs = 1: the
-    kernel deals its blocks itself; `mc` fixed for the whole launch) and the
-    most blocks the card holds at once with it: the largest grid such a
-    launch may have."""
-    mc = max(1, min(3, M, _MAX_SMEM // (4 * n) - T))
-    sh = _FoldShape(T, M, M // C2, L, C2, -1 if sign < 0 else 1, mc, 1)
-    log_n = n.bit_length() - 1
-    key = (source, T, mc, log_n, torch.device(device).index)
-    if key not in _resident:
-        blocks = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            err = getattr(_lib(source), f"fhe_{source}_blocks")(
-                sh, log_n, ctypes.byref(blocks))
-        _check(err, f"the occupancy query of {source}")
-        if blocks.value < 6:
-            raise RuntimeError(f"{source}: the device holds {blocks.value} "
-                               "blocks at once, 6 are needed")
-        _resident[key] = blocks.value
-    return sh, _resident[key]
-
-
-def _tree_launch_args(source: str, level_rows, gal_els, rots, T: int, M: int,
-                      C2: int, L: int, n: int, device):
-    """What a tree launch needs beside its tensors: the kernels' shape
-    argument (one for the whole launch: shared memory and `mc` cannot
-    change between levels), the per-level table (blocks that share a row,
-    chosen by the level's rows as `_fold_shape` chooses them for a
-    per-level launch; g^-1; the rotation), and the grid: as many blocks as
-    the widest level can use, at most what the card holds at once (a
-    cooperative launch takes no more)."""
-    sh, resident = _cooperative_shape(source, T, M, C2, L, -1, n, device)
-    lv = _TreeLevels()
-    lv.count = len(level_rows)
-    want = 0
-    for l, rows in enumerate(level_rows):
-        lv.cs[l] = _row_blocks(rows, M)
-        lv.ginv[l] = poly.auto_inverse(n, gal_els[l])
-        lv.rot[l] = rots[l] % (2 * n)
-        want = max(want, rows * lv.cs[l])
-    return sh, lv, min(want, resident)
+def _tree_layout(source: str, level_rows, T: int, M: int, C2: int, L: int, device,
+                 cs: int | None = None, blocks: int | None = None):
+    """(shape argument, instantiation, clusters) of a launch of a tree
+    kernel (`source` "split_tree" or "pack_tree") whose levels have
+    level_rows rows (row pairs of the pack tree) each.  One cluster size
+    serves every level: for each size (6 where the components split evenly,
+    and 3), the instantiation `_fold_blocks` gives the widest level and the
+    clusters the card holds at once with it; the levels then take sum_l
+    ceil(rows_l / clusters) rounds of rows, a round priced by the
+    transforms of one block, T + 3 M / cs.  The cheaper size wins (a single
+    write's split tree, 4 roots: clusters of 6; a batched RMW's of 16, 64
+    roots: of 3; the pack trees of 32 leaves likewise at 4 and 64 columns).
+    cs and blocks given here override the choice
+    (tools/time_bitwise_split_tree_predecessors.py and
+    time_pack_tree_ntt_predecessors.py time the others).  Raises where the
+    card holds no cluster."""
+    what = source.replace("_", " ")
+    polys = _staged_fold_polys(T, M, C2, what)
+    widest = max(level_rows)
+    best = None
+    for cs_ in (cs,) if cs is not None else (6, 3) if C2 % 2 == 0 else (3,):
+        sh = _FoldShape(T, M, M // C2, L, C2, -1, 0, cs_)
+        b = blocks if blocks is not None else _fold_blocks(widest * cs_, T, polys - T, device)
+        clusters = _max_clusters(source, sh, b, polys, device)
+        if clusters < 1:
+            continue
+        cost = sum(-(-rows // clusters) for rows in level_rows) * (T + 3 * M / cs_)
+        if best is None or cost < best[0]:
+            best = (cost, sh, b, min(clusters, widest))
+    if best is None:
+        raise RuntimeError(f"{source}: the device holds no cluster of its blocks")
+    return best[1:]
 
 
 def fused_split_tree_plain(ctx: NTTContext, ct, gal_els, keys_stacked):
@@ -1060,35 +1072,6 @@ def fused_split_tree(ctx: NTTContext, ct, gal_els, keys_stacked):
     return out
 
 
-def _split_tree_layout(nb: int, S: int, T: int, M: int, C2: int, L: int, device,
-                       cs: int | None = None, blocks: int | None = None):
-    """(shape argument, instantiation, clusters) of a split-tree launch.
-    One cluster size serves every level: for each size (6 where the
-    components split evenly, and 3), the instantiation `_fold_blocks` gives
-    the widest level and the clusters the card holds at once with it; the
-    levels then take sum_l ceil(nb 2^l / clusters) rounds of rows, a round
-    priced by the transforms of one block, T + 3 M / cs.  The cheaper size
-    wins (a single write's tree, nb = 4, S = 6: clusters of 6; a batched
-    RMW's of 16, nb = 64: of 3).  cs and blocks given here override the
-    choice (tools/time_bitwise_split_tree_predecessors.py times the
-    others).  Raises where the card holds no cluster."""
-    polys = _staged_fold_polys(T, M, C2, "split tree")
-    widest = nb << (S - 1)
-    best = None
-    for cs_ in (cs,) if cs is not None else (6, 3) if C2 % 2 == 0 else (3,):
-        sh = _FoldShape(T, M, M // C2, L, C2, -1, 0, cs_)
-        b = blocks if blocks is not None else _fold_blocks(widest * cs_, T, polys - T, device)
-        clusters = _max_clusters("split_tree", sh, b, polys, device)
-        if clusters < 1:
-            continue
-        cost = sum(-(-(nb << l) // clusters) for l in range(S)) * (T + 3 * M / cs_)
-        if best is None or cost < best[0]:
-            best = (cost, sh, b, min(clusters, widest))
-    if best is None:
-        raise RuntimeError("split_tree: the device holds no cluster of its blocks")
-    return best[1:]
-
-
 def _split_levels(gal_els, n: int) -> _SplitLevels:
     """csrc/split_tree.cu's level table: level l's g^-1 mod 2n and the
     back-rotation X^-2^l as X^t_back, t_back in [0, 2n)."""
@@ -1103,7 +1086,7 @@ def _split_levels(gal_els, n: int) -> _SplitLevels:
 def _launch_split_tree(ctx: NTTContext, ct, gal_els, keys_stacked, cs: int | None = None,
                        blocks: int | None = None):
     """One launch of csrc/split_tree.cu on checked arguments, not counted
-    (`fused_split_tree` counts it); the layout `_split_tree_layout`'s."""
+    (`fused_split_tree` counts it); the layout `_tree_layout`'s."""
     nb, C2, L, n = ct.shape
     S, P, T, M, _ = keys_stacked.shape
     ct = _aligned16(_require(ct, "ct"))
@@ -1111,7 +1094,8 @@ def _launch_split_tree(ctx: NTTContext, ct, gal_els, keys_stacked, cs: int | Non
     out = torch.empty((nb, 1 << S, C2, L, n), dtype=I32, device=ct.device)
     if nb == 0:
         return out
-    sh, blocks, clusters = _split_tree_layout(nb, S, T, M, C2, L, ct.device, cs, blocks)
+    sh, blocks, clusters = _tree_layout("split_tree", [nb << l for l in range(S)], T, M, C2,
+                                        L, ct.device, cs, blocks)
     lv = _split_levels(gal_els, n)
     tmp = torch.empty((nb, 1 << (S - 1), C2, L, n), dtype=I32, device=ct.device)
     arrived = torch.zeros((1,), dtype=I32, device=ct.device)
@@ -1165,27 +1149,48 @@ def fused_pack_tree(ctx: NTTContext, cts, keys_stacked):
     _fold_limits(T, Mk, C2, L, n)
     if not _use_kernel(ctx, cts):
         return fused_pack_tree_plain(ctx, cts, keys_stacked)
+    out = _launch_pack_tree(ctx, cts, keys_stacked)
+    if nb:
+        LAUNCHES["fused_pack_tree"] += 1
+    return out
+
+
+def _pack_levels(levels: int, n: int) -> _PackLevels:
+    """csrc/pack_tree.cu's level table, in merge order: level s's g^-1 mod
+    2n (g = n / t + 1) and rotation t = 2^(levels-1-s)."""
+    lv = _PackLevels()
+    lv.count = levels
+    for s in range(levels):
+        t = 1 << (levels - 1 - s)
+        lv.ginv[s] = poly.auto_inverse(n, n // t + 1)
+        lv.rot[s] = t % (2 * n)
+    return lv
+
+
+def _launch_pack_tree(ctx: NTTContext, cts, keys_stacked, cs: int | None = None,
+                      blocks: int | None = None):
+    """One launch of csrc/pack_tree.cu on checked arguments, not counted
+    (`fused_pack_tree` counts it); the layout `_tree_layout`'s over the
+    levels' (M >> (s + 1)) * nb row pairs; a zeroed counter a row pair of
+    every level but the last."""
+    M, nb, C2, L, n = cts.shape
+    levels, P, T, Mk, _ = keys_stacked.shape
     cts = _require(cts, "cts")
-    keys_stacked = _require(keys_stacked, "keys_stacked")
+    keys_stacked = _aligned16(_require(keys_stacked, "keys_stacked"))
     out = torch.empty((nb, C2, L, n), dtype=I32, device=cts.device)
     if nb == 0:
         return out
-    ls = [levels - 1 - s for s in range(levels)]
-    sh, lv, blocks = _tree_launch_args(
-        "pack_tree", [(M >> (s + 1)) * nb for s in range(levels)],
-        [(n >> l) + 1 for l in ls], [1 << l for l in ls], T, Mk, C2, L, n,
-        cts.device)
-    tmp = torch.empty((max(1, M // 2 + M // 4), nb, C2, L, n), dtype=I32,
-                      device=cts.device)
-    scratch = torch.empty((blocks, P, Mk, n), dtype=I32, device=cts.device)
-    arrived = torch.zeros((levels, blocks), dtype=I32, device=cts.device)
+    sh, blocks, clusters = _tree_layout(
+        "pack_tree", [(M >> (s + 1)) * nb for s in range(levels)], T, Mk, C2, L,
+        cts.device, cs, blocks)
+    tmp = torch.empty((max(1, M // 2 + M // 4), nb, C2, L, n), dtype=I32, device=cts.device)
+    done = torch.zeros((max(1, (M - 2) * nb),), dtype=I32, device=cts.device)
     with torch.cuda.device(cts.device):
         err = _lib("pack_tree").fhe_pack_tree(
-            cts.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(),
-            tmp.data_ptr(), scratch.data_ptr(), arrived.data_ptr(), M, nb,
-            blocks, lv, sh, _consts(ctx), _tables(ctx, cts.device), _stream())
+            cts.data_ptr(), keys_stacked.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+            done.data_ptr(), M, nb, clusters, T // (C2 - 1), _pack_levels(levels, n),
+            blocks, sh, _consts(ctx), _fold_tables(ctx, cts.device), _stream())
     _check(err, "fused_pack_tree")
-    LAUNCHES["fused_pack_tree"] += 1
     return out
 
 

@@ -282,7 +282,8 @@ def main():
             "old": split_tree_predecessor(pred["split_tree"], ctx, ct, gs, ks),
             "per_level": lambda: split_levels(ctx, ct, gs, ks)}) and ok
         if S == 6:
-            sh, blocks, clusters = ntt_cuda._split_tree_layout(nb, S, T_kf, M_kf, C, L, dev)
+            sh, blocks, clusters = ntt_cuda._tree_layout(
+                "split_tree", [nb << l for l in range(S)], T_kf, M_kf, C, L, dev)
             line({"kernel": "fused_split_tree", "shape": note7,
                   "chosen": {"cs": sh.cs, "blocks": blocks, "clusters": clusters}})
             ok = layouts("fused_split_tree", note7,

@@ -779,6 +779,63 @@ def test_fold_kernel_index_arithmetic_matches_the_plain_transforms():
     assert torch.equal(v1, w1) and torch.equal(v2, w2) and torch.equal(v3, w3)
 
 
+def test_ntt_kernel_words_match_the_plain_transforms():
+    """csrc/ntt.cu's loads and stores around the fold body's transforms,
+    emulated at N = 4096 for the three DEFAULT_PRIMES: the forward loads
+    its int32 poly in layout L0 (thread t the words t + 256 r: each warp
+    128 consecutive bytes a register), stores its 16 canonical words of
+    layout L2 at (t << 4) | r as four 16-byte units (every word once), and
+    equals ntt_fwd_plain; the inverse loads the same words of residues in
+    any int32 representative (negative, shifted by multiples of p, the
+    int32 extremes), reduces them to [0, 2p) by a lift and a Shoup product
+    by (1, mu40 >> 8) (= floor(2^32 / p)), and reads its swizzled buffer
+    back in natural order (thread t the coefficients t + 256 k: 32 banks a
+    warp), centered: equal to ntt_inv_plain; all bit for bit."""
+    from fhe_ram_tpu_torch.ops.ntt import ntt_fwd_plain, ntt_inv_plain
+    from fhe_ram_tpu_torch.params import DEFAULT_PRIMES
+
+    ctx = tget_ctx(_FOLD_N, DEFAULT_PRIMES)
+    emu = _FoldEmu(ctx)
+    t, r, p = emu.t, emu.r, emu.p[..., 0]
+    rnd = np.random.default_rng(5)
+    x = rnd.integers(-(1 << 31), 1 << 31, size=_FOLD_N, dtype=np.int64)
+    x[:4] = [-(1 << 31), (1 << 31) - 1, 0, -1]
+    x = torch.from_numpy(x.astype(np.int32))
+
+    # forward: the loads of layout L0 coalesced, the stores of layout L2
+    load = _lay(0, t, r)[0]                                  # [256 threads, 16]
+    assert torch.equal(load.transpose(0, 1).reshape(16, 8, 32),
+                       torch.arange(_FOLD_N).reshape(16, 8, 32))
+    store = (t[0] << 4) | r[0]                               # word of (t, r)
+    units = store.reshape(_FOLD_THREADS, 4, 4)               # (t, k): words 16 t + 4 k + j
+    assert torch.equal(units, (16 * t[0, :, :, None] + 4 * torch.arange(4).reshape(1, 4, 1)
+                               + torch.arange(4)))
+    assert torch.equal(store.reshape(-1).sort().values, torch.arange(_FOLD_N))
+    spec = torch.empty((3, _FOLD_N), dtype=torch.int64)
+    spec[:, store.reshape(-1)] = emu.lazy(emu.forward(x), emu.p).reshape(3, -1)
+    assert torch.equal(spec, ntt_fwd_plain(ctx, x).to(torch.int64))
+
+    # inverse: any representative in, the Shoup reduction by 1, centered out
+    any_rep = spec + p * torch.from_numpy(rnd.integers(-2000, 2000, size=(3, _FOLD_N)))
+    any_rep[:, :2] = torch.tensor([-(1 << 31), (1 << 31) - 1])
+    any_rep = torch.where(any_rep >= 1 << 31, spec, torch.where(any_rep < -(1 << 31), spec,
+                                                                    any_rep))
+    mu40 = torch.tensor([(1 << 40) // q for q in DEFAULT_PRIMES]).reshape(3, 1, 1)
+    one = (torch.ones_like(mu40), mu40 >> 8)
+    assert torch.equal(one[1][:, 0, 0], torch.tensor([(1 << 32) // q for q in DEFAULT_PRIMES]))
+    lift = ((0x80000000 + p - 1) // p) * p
+    e = any_rep[:, store]                                    # [3, 256, 16]
+    u = torch.where(e < 0, (e + (1 << 32) + lift[..., None]) & _M32, e)
+    v = emu.shoup(u, one)
+    res = emu.inverse(v)                                     # read back at swz(i), i natural
+    read = t[0] + _FOLD_THREADS * r[0]                       # thread t, k: i = t + 256 k
+    banks = (_swz(read) % 32).reshape(8, 32, 16).sort(dim=1).values
+    assert torch.equal(banks, torch.arange(32).reshape(1, 32, 1).expand(8, 32, 16))
+    p3 = emu.p.reshape(3, 1)
+    out = torch.where(res > p3 // 2, res - p3, res)
+    assert torch.equal(out, ntt_inv_plain(ctx, any_rep.to(torch.int32)).to(torch.int64))
+
+
 def test_merge_kernel_glue_matches_pack_merge_level():
     """csrc/pack_merge.cu's digit loads (v = A - X^t B staged in shared
     memory, gathered at sigma_g's source words) and its base (u plus

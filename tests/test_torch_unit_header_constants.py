@@ -33,6 +33,7 @@ def test_python_limits_and_structs_match_the_cuda_header():
     for struct, mirror in (("FoldShape", ntt_cuda._FoldShape),
                            ("TraceSteps", ntt_cuda._TraceSteps),
                            ("TreeLevels", ntt_cuda._TreeLevels),
+                           ("PackLevels", ntt_cuda._PackLevels),
                            ("SplitLevels", ntt_cuda._SplitLevels),
                            ("FheConsts", ntt_cuda._Consts),
                            ("FheTables", ntt_cuda._Tables),
@@ -44,6 +45,7 @@ def test_python_limits_and_structs_match_the_cuda_header():
     steps = ntt_cuda._MAX_STEPS
     assert ctypes.sizeof(ntt_cuda._TraceSteps) == 4 * (1 + steps)
     assert ctypes.sizeof(ntt_cuda._TreeLevels) == 4 * (1 + 3 * steps)
+    assert ctypes.sizeof(ntt_cuda._PackLevels) == 4 * (1 + 2 * steps)
     assert ctypes.sizeof(ntt_cuda._SplitLevels) == 4 * (1 + 2 * steps)
     assert ctypes.sizeof(ntt_cuda._FoldShape) == 4 * 8
     assert ctypes.sizeof(ntt_cuda._RotSteps) == 4 * (1 + steps)
