@@ -18,18 +18,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  the row-sharded paths' shapes at PARAMS_2_24_READOPT
                  (torch.equal: integer arithmetic, tolerance 0), with times
                  (the collectives also beside one torch.stack that makes
-                 every shard's output); kernel 12 in both transform bodies,
-                 the two-pass variant also bit-equal to the radix-2 one;
-                 kernels 1, 2 and 5 (one build for both bodies) under both
-                 contexts, the two-pass context's call bit-equal to the
-                 radix-2 one's, kernel 2 also timed at the 2^24 read's level
-                 0, as kernel 4 (on the same body) is; kernels 3 and 6 (on
-                 that body too) at a read's, a write's and a batch's shapes,
-                 the split up to the per-level batched RMW's last level
-                 (2048 rows); kernel 12 (on no path) also folded and held
-                 against kernel 2; kernels 1, 7, 8 and 9 also bit-equal to
-                 their predecessors (fhe_ram_tpu_torch/tools/; kernel 1's in
-                 both bodies), timed beside
+                 every shard's output); kernels 1, 2, 5 and 12 (one build
+                 for both bodies) under both contexts, the two-pass
+                 context's call bit-equal to the radix-2 one's, kernel 2
+                 also timed at the 2^24 read's level 0, as kernel 4 (on
+                 the same body) is; kernels 3 and 6 (on that body too) at a
+                 read's, a write's and a batch's shapes, the split up to the
+                 per-level batched RMW's last level (2048 rows); kernel 12
+                 (on no path) also folded and held against kernel 2;
+                 kernels 1, 7, 8, 9, 12 and 14 also bit-equal to their
+                 predecessors (fhe_ram_tpu_torch/tools/; kernels 1's and
+                 12's in both bodies), timed beside
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -348,7 +347,7 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="trace one more read, write cycle, batched read, "
                          "batched read-modify-write, VM cycle, 2^24 read, "
-                         "sharded read and sharded RMW with "
+                         "sharded reads (ring, exchange) and sharded RMW with "
                          "torch.profiler: device time by kernel and the "
                          "device's idle share")
     ap.add_argument("--verbose-build", action="store_true",
@@ -392,22 +391,25 @@ def main():
           "cuda": torch.version.cuda})
 
     # ---- build -------------------------------------------------------------
-    # the predecessors of kernels 1, 7, 8 and 9 (fhe_ram_tpu_torch/tools/),
-    # held bit-equal to them below, build beside the kernels, each nvcc
+    # the predecessors of kernels 1, 7, 8, 9, 12 and 14
+    # (fhe_ram_tpu_torch/tools/), held bit-equal to them below, build beside
+    # the kernels (one nvcc a source: none is built twice), each nvcc
     # started before the first is awaited
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "fhe_ram_tpu_torch", "tools"))
     import time_bitwise_split_tree_predecessors as preds
+    import time_external_exchange_predecessors as preds13
     import time_pack_tree_ntt_predecessors as preds12
     t0 = time.time()
-    pred_jobs, pred12_jobs = preds.start(), preds12.start()
+    pred_jobs, pred12_jobs, pred13_jobs = preds.start(), preds12.start(), preds13.start()
     ntt_cuda.ensure_built(verbose=args.verbose_build)
     pred, pred12 = preds.finish(pred_jobs), preds12.finish(pred12_jobs)
+    pred13 = preds13.finish(pred13_jobs)
     emit({"phase": "build", "ok": True, "seconds": round(time.time() - t0, 2),
           "sources": [f"fhe_ram_tpu_torch/csrc/{s}.cu" for s in ntt_cuda.SOURCES],
-          "built_for_both_bodies": list(ntt_cuda.BODY_SOURCES),
           "predecessors": sorted({f"fhe_ram_tpu_torch/tools/{spec[0]}" for spec in
-                                  (*preds.SPECS.values(), *preds12.SPECS.values())}),
+                                  (*preds.SPECS.values(), *preds12.SPECS.values(),
+                                   *preds13.SPECS.values())}),
           "target": "sm_90a"})
 
     # ---- each kernel against its plain version, at the read's shapes -------
@@ -491,15 +493,6 @@ def main():
             fail(f"{name} {shape_note} disagrees with its plain version "
                  f"(max abs err {err})")
         return rec
-
-    def check_bodies(name, shape_note, make, **kw):
-        """check() of a kernel built with both transform bodies: make(ctx_)
-        -> the call under that context.  The two-pass variant (counted and
-        listed as name + "_two_pass") is held against its plain version and
-        bit-equal to the radix-2 variant."""
-        check(name, shape_note, make(ctx), **kw)
-        return check(f"{name}_two_pass", shape_note, make(tctx), same_as=make(ctx),
-                     **kw)
 
     # kernel 1 (one build for both contexts): both directions at B = 36 (one
     # address coordinate's GGSW) and at the batched read's level-0 digits
@@ -612,17 +605,26 @@ def main():
           lambda: ntt_cuda.fused_external_fold_batched(ctx, xb1, keys_b, L, C,
                                                        base=bb1, sign=-1))
 
-    # kernel 12 in both bodies (on no path: held here alone): a small shape
-    # and the read's level-0 shape, and the relation the JAX package's own
-    # test pins: normalize(crt_fold(kernel 12)) == kernel 2 without a base
+    # kernel 12 (one build for both contexts; on no path: held here alone)
+    # at a small shape and the read's level-0 shape, under both contexts,
+    # the two-pass context's call bit-equal to the radix-2 one's; beside
+    # each, the predecessor in that context's body; and the relation the
+    # JAX package's own test pins: normalize(crt_fold(kernel 12)) == kernel
+    # 2 without a base
     for B_, T_, M_ in ((2, 3, 2), (W * R, T_ep, M_ep)):
         x12 = limbs((B_, T_, n))
         k12 = spectra((T_, M_, n))
-        check_bodies("fused_external", f"x[{B_},{T_},4096] keys[3,{T_},{M_},4096]",
-                     lambda c: lambda: ntt_cuda.fused_external(c, x12, k12),
-                     plain_reps=2 if B_ > 2 else 3,
-                     work=(poly_b * (B_ * T_ + P * T_ * M_ + P * B_ * M_),
-                           B_ * P * (T_ * ntt_ops(n) + M_ * (2 * T_ * n + ntt_ops(n)))))
+        note = f"x[{B_},{T_},4096] keys[3,{T_},{M_},4096]"
+        for c_, body in ((ctx, "radix2"), (tctx, "two_pass")):
+            check("fused_external", note if c_ is ctx else f"{note} (two-pass context)",
+                  lambda: ntt_cuda.fused_external(c_, x12, k12),
+                  same_as=(lambda: ntt_cuda.fused_external(ctx, x12, k12))
+                  if c_ is tctx else None,
+                  plain_reps=2 if B_ > 2 else 3,
+                  work=(poly_b * (B_ * T_ + P * T_ * M_ + P * B_ * M_),
+                        B_ * P * (T_ * ntt_ops(n) + M_ * (2 * T_ * n + ntt_ops(n)))),
+                  predecessor_fn=preds13.external_predecessor(
+                      pred13[f"external_{body}"], c_, x12, k12))
     for c_ in (ctx, tctx):
         folded = limb_ops.normalize(crt_fold(
             PAR.primes, ntt_cuda.fused_external(c_, x12, k12).reshape(P, W * R, C, Lge, n),
@@ -843,7 +845,9 @@ def main():
         check("exchange", collective_note(n_sh, chunks[0], stride),
               lambda: tuple(coll_mod.exchange(chunks, stride)),
               work=(chunk_bytes(chunks[0]) * 2 * n_sh, 0),
-              library_fn=lambda: torch.stack([chunks[k ^ stride] for k in range(n_sh)]))
+              library_fn=lambda: torch.stack([chunks[k ^ stride] for k in range(n_sh)]),
+              predecessor_fn=preds13.exchange_predecessor(pred13["exchange"], chunks,
+                                                          stride))
     del chunks
     emit({"phase": "kernel_checks", "ok": True, "tolerance": 0, "checks": checks,
           "timed_only": timed_only})
@@ -1246,15 +1250,13 @@ def main():
     cserver = ram_mod.FheRam(PAR, ekp, device=dev, composed=True)
     cctx = cserver.ctx
 
-    # the transform (kernel 1) and the fold (kernels 2 and 5) are one build
-    # for both bodies; every other launch of a composed window must be a
-    # two-pass variant
+    # a composed window launches the transform (kernel 1) and the fold
+    # (kernels 2 and 5), one build for both bodies, and nothing else
     composed_ok = ("ntt_fwd", "ntt_inv", "fused_external_fold",
                    "fused_external_fold_batched")
 
     def only_composed(what, counts):
-        off = {k: v for k, v in counts.items()
-               if v and not (k.endswith("_two_pass") or k in composed_ok)}
+        off = {k: v for k, v in counts.items() if v and k not in composed_ok}
         if off:
             fail(f"{what}: launches off the composed routes: {off}")
 
@@ -2007,6 +2009,10 @@ def main():
         traced(f"sharded read at 2^24, rows {n4}, ring",
                lambda: sread(bshards, bap.coordinates, batk),
                statistics.median(sh_ms["ring"]))
+        xread = mesh_mod.sharded_read_fn(BPAR, bmesh, "exchange")
+        traced(f"sharded read at 2^24, rows {n4}, exchange",
+               lambda: xread(bshards, bap.coordinates, batk),
+               statistics.median(sh_ms["exchange"]))
         (coeff, prep), w_ct = cyc_in[0]
         traced(f"sharded RMW at 2^24, rows {n4}",
                lambda: rmw_fn(bshards, prep.coordinates, coeff.coordinates, w_ct,
@@ -2026,7 +2032,7 @@ def main():
                "vm_cycle": vm_launches, "read_2_24": read24_launches,
                "sharded_read": shread_launches, "sharded_batch": shbatch_launches,
                "sharded_rmw": srmw_launches}
-    on_no_path = ("fused_external", "fused_external_two_pass")
+    on_no_path = ("fused_external",)
     total_launches = {k: sum(p_[k] for p_ in by_path.values()) for k in path_launches}
     for k, v in total_launches.items():
         if v == 0 and k not in on_no_path:
@@ -2087,10 +2093,10 @@ def main():
         entry("fused_external_fold_batched", "fold.cu", 1263, 0,
               poly_b * (P * B0 * T_ep + NA * P * T_ep * M_ep + NA * B0 * C * L),
               fold_ops(NA * B0, T_ep, M_ep, n, spectral=True))]
-    # kernel 12 at the read's level-0 shape, both bodies (the body of the
-    # two-pass variant: the non-MXU `kernel` of _fused_kernel_factory)
-    kernels += [entry("fused_external", "external.cu", 601, 1),
-                entry("fused_external_two_pass", "external.cu", 572, 1)]
+    # kernel 12 at the read's level-0 shape: one build for both bodies (it
+    # replaces the MXU one and the non-MXU `kernel` of _fused_kernel_factory,
+    # :572, alike); every checked shape in per_shape
+    kernels += [entry("fused_external", "external.cu", 601, 2)]
     kernels += [
         entry("fused_trace", "trace.cu", 1463, 0,
               poly_b * (2 * W * C * L + S * P * T_ks * M_ks),
@@ -2127,14 +2133,15 @@ def main():
     ]
     for k in kernels:
         if k["name"] in COLLECTIVES:
-            k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",
-                                                "library_ms", "bound_ms")}
+            k["per_shape"] = [{f: r.get(f) for f in ("shape", "ms", "plain_ms",
+                                                    "library_ms", "bound_ms",
+                                                    "predecessor_ms")}
                               for r in checks[k["name"]]]
-        if k["name"] in ("ntt_fwd", "ntt_inv", "fused_external_fold",
+        if k["name"] in ("ntt_fwd", "ntt_inv", "fused_external", "fused_external_fold",
                          "fused_external_fold_batched", "fused_pack_merge", "fused_trace",
                          "fused_split"):
             k["per_shape"] = [{f: r.get(f) for f in ("shape", "ms", "plain_ms", "bound_ms",
-                                                     "bound_by")}
+                                                     "bound_by", "predecessor_ms")}
                               for r in checks[k["name"]] + timed_only.get(k["name"], [])]
         if k["name"] in VM_KERNELS:
             k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",

@@ -1,10 +1,11 @@
 // Shared device code of the Hopper kernels of the encrypted RAM: modular
 // arithmetic, the 4096-point negacyclic NTT in shared memory in two bodies,
-// and the "row fold" the first fused kernels were built from.  Kernel 12
-// (external.cu) runs the bodies and the row fold's first half
-// (prime_residues); the rest serves the predecessors kept for timing in
-// fhe_ram_tpu_torch/tools/.  Every other kernel of csrc/ but the
-// collectives runs on fold_body.cuh.
+// and the "row fold" the first fused kernels were built from.  It serves
+// the predecessors kept for timing in fhe_ram_tpu_torch/tools/ (kernel
+// 12's runs the bodies and the row fold's first half, prime_residues);
+// every kernel of csrc/ but the collectives runs on fold_body.cuh, which
+// takes its constants and index helpers (center, sigma_src, rot_at) from
+// here.
 //
 // Replaces (function, not structure): fhe_ram_tpu/ops/ntt_pallas.py
 //   _fwd_tile_mxu / _inv_tile_mxu   -> ntt_fwd_smem / ntt_inv_smem
@@ -282,9 +283,9 @@ __device__ __forceinline__ void ntt_inv_smem_2pass(uint32_t* a, int npoly,
 }
 
 // The body every kernel of a translation unit runs: the two-pass body when
-// the unit is built with -DFHE_NTT_TWO_PASS (ops/ntt_cuda.py builds
-// external.cu, and tools/ the predecessors of ntt.cu and fold.cu, once with
-// it and once without), radix-2 else.
+// the unit is built with -DFHE_NTT_TWO_PASS (tools/ builds the
+// predecessors of ntt.cu, fold.cu and external.cu once with it and once
+// without), radix-2 else.
 __device__ __forceinline__ void ntt_fwd_body(uint32_t* a, int npoly, int log_n,
                                              const uint32_t* __restrict__ tw,
                                              uint32_t p, uint32_t mu40) {

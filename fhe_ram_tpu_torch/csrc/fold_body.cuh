@@ -4,12 +4,14 @@
 // (kernel 6, split.cu), the split tree (kernel 7, split_tree.cu), the pack
 // tree (kernel 8, pack_tree.cu), the bitwise group (kernel 9, bitwise.cu),
 // the blind rotation (kernel 10, blind_rotate.cu), the carry-DP chain
-// (kernel 11, dp_chain.cu) and the NTT (kernel 1, ntt.cu: the transforms
-// alone).  fold.cu's note sets out the design; this header holds its
-// device functions: the Shoup and lazy arithmetic, the three register
-// layouts and the swizzle of the exchange buffers, the radix-16 transforms
-// (`forward_regs` / `forward` take a loader of the digit poly's
-// coefficients, `inverse`), the key products, the Garner and the
+// (kernel 11, dp_chain.cu), the NTT (kernel 1, ntt.cu: the transforms
+// alone) and the external product without the fold (kernel 12,
+// external.cu: the transforms and the key products).  fold.cu's note
+// sets out the design; this header holds its device functions: the
+// Shoup and lazy arithmetic, the three register layouts and the swizzle
+// of the exchange buffers, the radix-16 transforms (`forward_regs` /
+// `forward` take a loader of the digit poly's coefficients, `inverse`),
+// the key products, the Garner and the
 // Garner/fold/carry step over distributed shared memory (`garner_fold`
 // takes the base to add and what to do with each normalized limb as
 // functors), one trace step of a row (`trace_step`, which kernels 3, 6 and

@@ -34,8 +34,7 @@
 //    second buffer in swizzled order), then read back and stored centered
 //    in natural order, coalesced (a warp's reads hit 32 banks).
 // One build serves the radix-2 and the two-pass contexts with the same
-// integers, as fold.cu does; kernel 12 (external.cu) keeps fhe_core.cuh's
-// two bodies.  Its predecessor, ntt_fwd_body / ntt_inv_body of
+// integers, as fold.cu and external.cu do.  Its predecessor, ntt_fwd_body / ntt_inv_body of
 // fhe_core.cuh over 4096 words in shared memory (one barrier a radix-2
 // stage, or three with -DFHE_NTT_TWO_PASS), is kept for timing in
 // fhe_ram_tpu_torch/tools/ntt_predecessor.cu.

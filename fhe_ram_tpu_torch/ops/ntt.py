@@ -17,11 +17,11 @@ transform (ops/ntt_cuda.py, csrc/ntt.cu) matches it bit for bit, and the
 fused kernels consume keys prepared by either.  `ntt_inv` returns centered
 residues in [-(p-1)/2, (p-1)/2].
 
-Two transform bodies (csrc/fhe_core.cuh) give the same integers, spectra
-included, so keys prepared under one serve the other; kernel 12
-(external.cu) is built in both, and the transform and fold kernels run
-the fold body's radix-16 transforms (csrc/fold_body.cuh), one build for
-both.  A context names its body, and with it the RAM's routes:
+Two transform bodies give the same integers, spectra included, so keys
+prepared under one serve the other; every CUDA kernel runs the fold
+body's radix-16 transforms (csrc/fold_body.cuh), one build for both
+contexts (csrc/fhe_core.cuh's two bodies serve only the predecessors kept
+in tools/).  A context names its body, and with it the RAM's routes:
 
   "radix2"    the RAM routes each pack merge, trace and split level
               through its fused kernel (fused_path_active(ctx) is True).

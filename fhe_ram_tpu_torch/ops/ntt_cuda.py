@@ -20,22 +20,19 @@ Counterpart of fhe_ram_tpu/ops/ntt_pallas.py.  Twelve kernels (csrc/):
 and the two collectives of the row-sharded pack, whose wrappers live in
 parallel/collective.py (collective.cu): ring_all_gather, exchange.
 
-Transform bodies: external.cu (kernel 12, on no path) is built twice, once
-with the radix-2 body and once with the two-pass 64 x 64 body
-(-DFHE_NTT_TWO_PASS, csrc/fhe_core.cuh); its wrapper launches the variant
-of the context's body (ops/ntt.py) and counts it under its own name, with
-"_two_pass" appended for the second body.  ntt.cu (kernel 1) and fold.cu
-(kernels 2 and 5) are built once: their transforms are the fold body's
-(three radix-16 passes in registers, fold_body.cuh, which every other
-kernel but the collectives shares), they serve both bodies' contexts with
-the same integers and count under their own names.
+Transform bodies: every source is built once.  The transforms of every
+kernel but the collectives are the fold body's (three radix-16 passes in
+registers, csrc/fold_body.cuh), so ntt.cu (kernel 1), fold.cu (kernels 2
+and 5) and external.cu (kernel 12, on no path) serve the radix-2 and the
+two-pass contexts (ops/ntt.py) with the same integers and count under
+their own names whatever the context's body.
 The fused kernels 3, 4 and 6-11 serve the radix-2 context only: a two-pass
 context routes around them (ops.ntt.fused_path_active).  Helpers that build the trace
 step, the split level and the pack merge from one fold (trace_step,
 split_level, pack_merge_level) serve the composed routes with the fold
 kernel and the plain versions with its plain version.
 
-Build: one `nvcc -shared` per source and body for sm_90a, all started
+Build: one `nvcc -shared` per source for sm_90a, all started
 together, into `<package>/build/` at first use; plain C entry points bound
 with ctypes.  Nothing is compiled when this module is imported.
 
@@ -67,7 +64,7 @@ from . import limb as limb_ops
 from . import poly
 from .crt import crt_fold, garner_consts
 from .modular import I32, I64
-from .ntt import BODIES, NTTContext, ntt_fwd_plain, ntt_inv_plain
+from .ntt import NTTContext, ntt_fwd_plain, ntt_inv_plain
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -75,9 +72,6 @@ _BUILD = _PKG / "build"
 SOURCES = ("ntt", "fold", "external", "trace", "pack_merge", "split",
            "split_tree", "pack_tree", "blind_rotate", "dp_chain", "bitwise",
            "collective")
-# the sources built once a transform body; the others are built once
-BODY_SOURCES = ("external",)
-_BODY_FLAGS = {"radix2": [], "two_pass": ["-DFHE_NTT_TWO_PASS"]}
 
 _MAX_L = 8        # FHE_MAX_L of csrc/fhe_core.cuh
 _MAX_STEPS = 16   # FHE_MAX_STEPS: steps of a trace launch, levels of a tree launch
@@ -104,15 +98,11 @@ _FOLD_MAX_LK = 8  # FOLD_MAX_LK of csrc/fold.cu: key limbs a fold takes
 
 # Kernel launches since the last reset_launches(): one count per wrapper,
 # incremented where the wrapper launches its kernel and nowhere else.
-# The wrapper of both bodies counts the two-pass variant apart.
-_BODY_WRAPPERS = ("fused_external",)
 LAUNCHES = dict.fromkeys(
-    ("ntt_fwd", "ntt_inv") + _BODY_WRAPPERS
-    + tuple(f"{w}_two_pass" for w in _BODY_WRAPPERS)
-    + ("fused_external_fold", "fused_external_fold_batched",
-       "fused_trace", "fused_pack_merge", "fused_split", "fused_split_tree",
-       "fused_pack_tree", "fused_blind_rotate", "fused_dp_chain",
-       "fused_bitwise", "ring_all_gather", "exchange"), 0)
+    ("ntt_fwd", "ntt_inv", "fused_external", "fused_external_fold",
+     "fused_external_fold_batched", "fused_trace", "fused_pack_merge",
+     "fused_split", "fused_split_tree", "fused_pack_tree", "fused_blind_rotate",
+     "fused_dp_chain", "fused_bitwise", "ring_all_gather", "exchange"), 0)
 
 _force_plain = False
 _libs = None
@@ -147,6 +137,7 @@ class _Consts(ctypes.Structure):
 
 
 class _Tables(ctypes.Structure):
+    """csrc/fhe_core.cuh's FheTables, of the predecessors in tools/."""
     _fields_ = [("psi", ctypes.c_void_p), ("inv_psi", ctypes.c_void_p),
                 ("fwd_tw", ctypes.c_void_p), ("inv_tw", ctypes.c_void_p)]
 
@@ -267,31 +258,22 @@ def finish_build(what: str, so: Path, job, verbose: bool = False):
 
 
 def build_kernels(verbose: bool = False):
-    """Compile csrc/*.cu into build/ (one nvcc per source and body, in
-    parallel) and return {(name, body): ctypes library}.  Raises on any
-    compiler error."""
+    """Compile csrc/*.cu into build/ (one nvcc per source, in parallel) and
+    return {name: ctypes library}.  Raises on any compiler error."""
     _find_nvcc()
-    jobs, paths = [], {}
-    for name in SOURCES:
-        for body in BODIES if name in BODY_SOURCES else ("radix2",):
-            # the body's flags are part of the tag and the name: the two
-            # variants of one source must not overwrite each other
-            so, job = start_build(_CSRC / f"{name}.cu", f"{name}_{body}",
-                                  _BODY_FLAGS[body])
-            paths[name, body] = so
-            jobs.append((f"csrc/{name}.cu ({body})", so, job))
-    for what, so, job in jobs:
-        finish_build(what, so, job, verbose)
+    jobs = {name: start_build(_CSRC / f"{name}.cu", name) for name in SOURCES}
+    for name, (so, job) in jobs.items():
+        finish_build(f"csrc/{name}.cu", so, job, verbose)
 
     vp, ci, cip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    libs = {key: ctypes.CDLL(str(path)) for key, path in paths.items()}
+    libs = {name: ctypes.CDLL(str(so)) for name, (so, _) in jobs.items()}
     sigs = {
         ("ntt", "fhe_ntt_fwd"): [vp, vp, ci, ci, _Consts, _FoldTables, vp],
         ("ntt", "fhe_ntt_inv"): [vp, vp, ci, ci, _Consts, _FoldTables, vp],
         ("fold", "fhe_fold"): [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, _FoldShape,
                                _Consts, _FoldTables, vp],
-        ("external", "fhe_external"): [vp, vp, vp, ci, _FoldShape, _Consts,
-                                       _Tables, vp],
+        ("external", "fhe_external"): [vp, vp, vp, ci, ci, ci, ci, ci, ci, _Consts,
+                                       _FoldTables, vp],
         ("trace", "fhe_trace"): [vp, vp, vp, vp, ci, ci, _TraceSteps, ci, ci,
                                  _FoldShape, _Consts, _FoldTables, vp],
         ("pack_merge", "fhe_pack_merge"): [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
@@ -316,9 +298,9 @@ def build_kernels(verbose: bool = False):
                                      ci, ci, _FoldShape, _Consts, _FoldTables, vp],
         ("collective", "fhe_ring_all_gather"): [ShardPtrs, ci, ctypes.c_longlong,
                                                 vp],
-        ("collective", "fhe_exchange"): [ShardPtrs, ci, ci, ctypes.c_longlong, vp],
+        ("collective", "fhe_exchange"): [ShardPtrs, ci, ci, ctypes.c_longlong, ci, vp],
     }
-    for (name, body), lib in libs.items():
+    for name, lib in libs.items():
         for (src, fn), argtypes in sigs.items():
             if src == name:
                 f = getattr(lib, fn)
@@ -336,13 +318,8 @@ def ensure_built(verbose: bool = False):
     return _libs
 
 
-def _lib(name: str, body: str = "radix2"):
-    return ensure_built()[name, body]
-
-
-def _counter(wrapper: str, ctx: NTTContext) -> str:
-    """The LAUNCHES key of a launch of `wrapper`'s kernel in ctx's body."""
-    return wrapper if ctx.body == "radix2" else f"{wrapper}_two_pass"
+def _lib(name: str):
+    return ensure_built()[name]
 
 
 def _consts(ctx: NTTContext) -> _Consts:
@@ -362,6 +339,7 @@ def _consts(ctx: NTTContext) -> _Consts:
 
 
 def _tables(ctx: NTTContext, device) -> _Tables:
+    """The predecessors' tables (tools/): canonical words, no Shoup pairs."""
     psi, inv_psi, fwd_tw, inv_tw = ctx.tables(device, I32)
     return _Tables(psi.data_ptr(), inv_psi.data_ptr(), fwd_tw.data_ptr(),
                    inv_tw.data_ptr())
@@ -750,6 +728,47 @@ def fused_external_plain(ctx: NTTContext, x, keys_ntt):
     return ntt_inv_plain(ctx, torch.remainder(acc, ctx.consts(4, x.device)).to(I32))
 
 
+def _external_launch(B: int, T: int, M: int, sms: int, split=None, blocks=None):
+    """(split, blocks_total, blocks) of a launch of csrc/external.cu over B
+    rows on a card of `sms` SMs: the units (row, prime) are cut into
+    `split` parts of the M output polys while there are fewer units than
+    SMs (each part redoes the row's T forward transforms), else kept
+    whole; the instantiation `blocks` is 2 (128 registers a thread) where
+    two blocks' shared memory, (T + 2) polys each, fits an SM and there are
+    more units than SMs, else 1 (up to 255); at most one wave of persistent
+    blocks.  Timed on an H100 (tools/time_external_exchange_predecessors.py,
+    which times every choice): at B=2, T=3, M=2 a split of 2 at one block
+    an SM ran 0.019 ms, unsplit 0.024 (0.021 / 0.026 at two blocks an SM);
+    at B=256, T=4, M=6 unsplit at two blocks an SM 0.216, at one 0.245, a
+    split of 6 0.49.  split and blocks given here override the choice."""
+    if split is None:
+        split = max(1, min(M, sms // (B * 3)))
+    units = B * 3 * split
+    if blocks is None:
+        two_fit = 2 * ((T + 2) * 4 * 4096 + 1024) <= _SM_SMEM
+        blocks = 2 if two_fit and units > sms else 1
+    return split, min(units, blocks * sms), blocks
+
+
+def _launch_external(ctx: NTTContext, x, keys_ntt, split=None, blocks=None):
+    """One launch of csrc/external.cu, not counted (the wrapper counts it);
+    returns int32[P, B, M, N].  The same build serves every context's
+    body."""
+    x = _require(x, "x")
+    keys_ntt = _aligned16(_require(keys_ntt, "keys_ntt"))
+    B, T, n = x.shape
+    P, _, M, _ = keys_ntt.shape
+    out = torch.empty((P, B, M, n), dtype=I32, device=x.device)
+    if B:
+        split, total, blocks = _external_launch(B, T, M, _sms(x.device), split, blocks)
+        with torch.cuda.device(x.device):
+            err = _lib("external").fhe_external(
+                x.data_ptr(), keys_ntt.data_ptr(), out.data_ptr(), B, T, M, split, total,
+                blocks, _consts(ctx), _fold_tables(ctx, x.device), _stream())
+        _check(err, "fused_external")
+    return out
+
+
 def fused_external(ctx: NTTContext, x, keys_ntt):
     """The external product core in one launch, without the CRT fold:
 
@@ -765,22 +784,13 @@ def fused_external(ctx: NTTContext, x, keys_ntt):
         raise ValueError(f"x {tuple(x.shape)} does not fit keys {tuple(keys_ntt.shape)}")
     if keys_ntt.device != x.device:
         raise ValueError(f"keys_ntt lies on {keys_ntt.device}, x on {x.device}")
-    _fold_limits(T, M, 1, 1, n)
+    if (T + 2) * 4 * n > _MAX_SMEM:
+        raise ValueError(f"T = {T} digit polys do not fit kernel 12's shared memory")
     if not _use_kernel(ctx, x):
         return fused_external_plain(ctx, x, keys_ntt)
-    x = _require(x, "x")
-    keys_ntt = _require(keys_ntt, "keys_ntt")
-    out = torch.empty((P, B, M, n), dtype=I32, device=x.device)
-    if B == 0:
-        return out
-    mc = max(1, min(3, M, _MAX_SMEM // (4 * n) - T))
-    sh = _FoldShape(T, M, M, 1, 1, 1, mc, 1)
-    with torch.cuda.device(x.device):
-        err = _lib("external", ctx.body).fhe_external(
-            x.data_ptr(), keys_ntt.data_ptr(), out.data_ptr(), B, sh,
-            _consts(ctx), _tables(ctx, x.device), _stream())
-    _check(err, "fused_external")
-    LAUNCHES[_counter("fused_external", ctx)] += 1
+    out = _launch_external(ctx, x, keys_ntt)
+    if B:
+        LAUNCHES["fused_external"] += 1
     return out
 
 

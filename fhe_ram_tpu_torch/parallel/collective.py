@@ -140,11 +140,45 @@ def exchange_plain(chunks, stride: int):
     return [chunks[k ^ stride].clone() for k in range(len(chunks))]
 
 
+# COLL_THREADS and EXCH_UNROLL of csrc/collective.cu: threads of a block,
+# 16-byte units a thread of the exchange loads before it stores
+COLL_THREADS = 256
+EXCH_UNROLL = 4
+_SM_THREADS = 2048   # threads an SM of sm_90 holds at once
+
+
+def _exchange_blocks(n: int, units: int, sms: int) -> int:
+    """Blocks a shard of an exchange launch over n shards of `units`
+    16-byte units each: enough for EXCH_UNROLL units a thread, at most one
+    wave (n * blocks no more than the card's SMs hold at once), at least
+    one (a block-stride loop covers the rest).  On an H100 at n = 8 this
+    grid (24 blocks a shard, one round) ran 0.3-0.5 us faster than one
+    block an SM (16 a shard, two rounds), as fast as 2 units a thread and
+    at least as fast as 1 (tools/time_external_exchange_predecessors.py)."""
+    want = -(-units // (COLL_THREADS * EXCH_UNROLL))
+    return max(1, min(want, sms * (_SM_THREADS // COLL_THREADS) // n))
+
+
+def _launch_exchange(chunks, stride: int, outs, entry=None, per=None):
+    """One launch of the exchange kernel (not counted) from the checked,
+    kernel-ready chunks into outs.  entry (another build's entry point of
+    the same arguments) and per (blocks a shard) override the wrapper's
+    (tools/time_external_exchange_predecessors.py times both)."""
+    n, units = len(chunks), chunks[0].numel() // 4
+    if per is None:
+        per = _exchange_blocks(n, units, ntt_cuda._sms(chunks[0].device))
+    entry = entry or ntt_cuda._lib("collective").fhe_exchange
+    with torch.cuda.device(chunks[0].device):
+        err = entry(_table(chunks, outs), n, stride, chunks[0].numel(), per,
+                    ntt_cuda._stream())
+    ntt_cuda._check(err, "exchange")
+
+
 def exchange(chunks, stride: int):
     """Bidirectional partner exchange: every shard k receives the chunk of
     shard k XOR stride, in a new tensor -- the primitive of the
     merge-interleaved pack tail (mesh._merge_exchange_tail).  One kernel
-    launch (csrc/collective.cu)."""
+    launch (csrc/collective.cu), dependent on the launch before it."""
     chunks = _check_chunks(chunks)
     n = len(chunks)
     _check_stride(n, stride)
@@ -153,9 +187,6 @@ def exchange(chunks, stride: int):
     ins = _kernel_inputs(chunks)
     outs = [torch.empty_like(c) for c in ins]
     if ins[0].numel():
-        with torch.cuda.device(ins[0].device):
-            err = ntt_cuda._lib("collective").fhe_exchange(
-                _table(ins, outs), n, stride, ins[0].numel(), ntt_cuda._stream())
-        ntt_cuda._check(err, "exchange")
+        _launch_exchange(ins, stride, outs)
         ntt_cuda.LAUNCHES["exchange"] += 1
     return outs

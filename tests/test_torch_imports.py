@@ -4,6 +4,7 @@ imports jax or anything of the JAX package."""
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -18,7 +19,7 @@ IMPORT_REFERENCE = re.compile(r"^\s*(import|from)\s+\.*fhe_ram_tpu(?!_torch)\b",
 USE_REFERENCE = re.compile(r"(?<![\w/])fhe_ram_tpu\.\w")
 
 
-def test_port_has_the_expected_layout():
+def test_port_has_the_expected_layout(monkeypatch):
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for want in ("params.py", "convert.py", "ops/ntt.py", "ops/ntt_cuda.py",
                  "ops/crt.py", "ops/limb.py", "ops/poly.py", "ops/modular.py",
@@ -38,14 +39,26 @@ def test_port_has_the_expected_layout():
     from fhe_ram_tpu_torch.ops import ntt_cuda
     assert {f"{s}.cu" for s in ntt_cuda.SOURCES} == {
         p.name for p in (PORT / "csrc").glob("*.cu")}
-    # the kernel built with both transform bodies (kernel 12) counts the
-    # two-pass variant apart; the transform (kernel 1) and the fold
-    # (kernels 2 and 5) are built once
-    both = {"fused_external"}
-    assert set(ntt_cuda.BODY_SOURCES) == {"external"}
-    assert set(ntt_cuda.LAUNCHES) == both | {f"{k}_two_pass" for k in both} | {
-        "ntt_fwd", "ntt_inv", "fused_external_fold", "fused_external_fold_batched",
-        "fused_trace", "fused_pack_merge",
+    # every source is built once, for both transform bodies' contexts
+    # (one nvcc a source, none with a body's flag), and every wrapper counts
+    # under its own name whatever the context's body: no "_two_pass" counter
+    built = []
+
+    class _Lib:
+        def __getattr__(self, name):
+            setattr(self, name, types.SimpleNamespace())
+            return getattr(self, name)
+    monkeypatch.setattr(ntt_cuda, "_find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(ntt_cuda, "start_build", lambda src, stem, flags=(): (
+        built.append((Path(src).name, tuple(flags))), (src, None))[1])
+    monkeypatch.setattr(ntt_cuda, "finish_build", lambda *a, **k: None)
+    monkeypatch.setattr(ntt_cuda.ctypes, "CDLL", lambda path: _Lib())
+    assert set(ntt_cuda.build_kernels()) == set(ntt_cuda.SOURCES)
+    assert sorted(built) == sorted((f"{s}.cu", ()) for s in ntt_cuda.SOURCES)
+    assert not [k for k in ntt_cuda.LAUNCHES if k.endswith("_two_pass")]
+    assert set(ntt_cuda.LAUNCHES) == {
+        "ntt_fwd", "ntt_inv", "fused_external", "fused_external_fold",
+        "fused_external_fold_batched", "fused_trace", "fused_pack_merge",
         "fused_split", "fused_split_tree", "fused_pack_tree",
         "fused_blind_rotate", "fused_dp_chain", "fused_bitwise",
         "ring_all_gather", "exchange"}
