@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's encrypted RAM once on one NVIDIA GPU: reads,
 read-modify-write cycles, batched reads, batched read-modify-writes,
-encrypted VM instruction cycles, and the 2^24 RAM unsharded and row-sharded
-over a mesh whose shards all lie on the card.
+encrypted VM instruction cycles, the VM LOAD (a word read from the RAM
+decomposed into its encrypted bits), and the 2^24 RAM unsharded and
+row-sharded over a mesh whose shards all lie on the card.
 
     python3 chip_smoke.py [--seed N] [--reads N] [--profile] [--kernels-only]
                           [--verbose-build]
@@ -28,7 +29,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  (on no path) also folded and held against kernel 2;
                  kernels 1, 7, 8, 9, 12 and 14 also bit-equal to their
                  predecessors (fhe_ram_tpu_torch/tools/; kernels 1's and
-                 12's in both bodies), timed beside
+                 12's in both bodies), timed beside; kernels 5, 1, 3 and 2
+                 also at every shape the LOAD gives them
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -76,6 +78,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  checked ones; the four parts timed apart
   vm_cycle_vs_plain  the last cycle again through the plain versions on the
                  card: rd, fetched and the whole new RAM bit-equal
+  load           the port's own client makes the bootstrapping key of the
+                 read phase's secret (8192 GGSWs, gadget of 5 limbs, flat
+                 coefficient form: 7.5 GiB); a word FheRam.read fetches from
+                 the RAM cell is decomposed by vm.bitdecomp.load_word into 32
+                 bits (2 phases x 4096 keyed CMux steps): the word decodes,
+                 its bit noise and selects of an encrypted 3 by lifted bits
+                 0, 7, 13, 31 decode under the bound; launches a load as
+                 counted from the code and the launched shapes the checked
+                 ones; load_ms; then the key prepared once (22.5 GiB) and a
+                 load on it, bit-equal
+  load_vs_plain  the first 64 chain steps of that word on the production key
+                 and amounts, then the trace, the affine and the lift of the
+                 result, through the kernels and the plain versions: bit-equal
   read_2_24      the port's own client at PARAMS_2_24_READOPT (keygen, 2^24 x
                  4 random bytes encrypted: 1.5 GiB of ciphertext), 4 reads at
                  distinct addresses through FheRam.read; each decodes
@@ -98,7 +113,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  every new data shard bit-equal
   sharded_vs_plain  one sharded read again through the plain versions on the
                  card, collectives included: every shard's output bit-equal
-  kernels        one line for all kernels: launches over the thirteen paths,
+  kernels        one line for all kernels: launches over the fifteen paths,
                  error, time, the plain version's time, the card's bound, and
                  for the collectives the library call's time
 
@@ -331,6 +346,83 @@ def vm_shapes(par, vctx, limbs):
     return out
 
 
+# -- the VM LOAD's kernels (5, 1, 3, 2) at PARAMS_2_18_TURBO_READOPT -------
+
+# the reference's production LOAD (scripts/bitdecomp_probe.py): 8-bit bytes
+# in phases of 4 bits (load_word's, the default chunk of bytes_to_bits), a
+# bootstrapping key with a gadget of 5 limbs in the flat coefficient form
+# (7.5 GiB at N = 4096)
+LOAD_BYTE_BITS, LOAD_CHUNK, LOAD_KEY_LIMBS = 8, 4, 5
+LOAD_KEY_CHUNK = 512     # indicator GGSWs the client encrypts together
+LOAD_TIMED = 3           # timed loads (host clock, median)
+LOAD_PREFIX = 64         # chain steps held against the plain versions
+LOAD_SELECT_BITS = (0, 7, 13, 31)
+# the wrappers on the LOAD's path (module attribute -> launch counter)
+LOAD_WRAPPERS = {"fused_external_fold_batched": "fused_external_fold_batched",
+                 "ntt_fwd_cuda": "ntt_fwd", "fused_trace": "fused_trace",
+                 "fused_external_fold": "fused_external_fold"}
+
+
+def load_note(*args, **kw):
+    """The shape note of one call of a wrapper on the LOAD's path (its
+    arguments after the context), the same for a check and for a recorded
+    launch."""
+    def one(a):
+        return (f"[{','.join(map(str, a.shape))}]" if isinstance(a, torch.Tensor)
+                else repr(a))
+    return "LOAD " + " ".join([one(a) for a in args] + [
+        f"{k}={one(v)}" for k, v in sorted(kw.items()) if v is not None])
+
+
+def load_shapes(par, ctx, limbs):
+    """(counter name, note, call, (bytes, operations)) of every shape the
+    LOAD gives kernels 5, 1, 3 and 2 at `par`, random inputs of those
+    shapes: a chain step's keyed product (the row's two GGSWs against the
+    2 x K rotated accumulators) and its key pair's transform, a phase's
+    trace of K accumulators, and the lift (every bit's row against the
+    tensor key, then the transform of the lifted stack)."""
+    from fhe_ram_tpu_torch.ops import ntt_cuda
+    from fhe_ram_tpu_torch.vm import bitdecomp
+
+    n, P, C, L, rank = par.n, par.num_primes, par.rank + 1, par.limbs_ct, par.rank
+    D, Dg, Lgk, Lk, S = par.dnum_ct, par.dnum_ggsw, par.limbs_evk_ggsw, par.limbs_evk_trace, par.log_n
+    poly_b, bits = 4 * n, LOAD_BYTE_BITS * par.word_size
+    K = par.word_size * LOAD_CHUNK * bitdecomp._LIFT_ROWS   # tests a phase
+
+    def spectra(shape):
+        return ntt_cuda.ntt_fwd_cuda(ctx, limbs(shape))
+
+    out = []
+    T5, M5 = C * D, C * LOAD_KEY_LIMBS
+    x5 = limbs((2, K, T5, n))
+    k5 = spectra((2, 1, T5, M5, n)).permute(1, 0, 2, 3, 4, 5).contiguous()
+    out.append(("fused_external_fold_batched", load_note(x5, k5, L, C, base=None, sign=1),
+                lambda: ntt_cuda.fused_external_fold_batched(ctx, x5, k5, L, C,
+                                                             base=None, sign=1),
+                (poly_b * (2 * K * T5 + 2 * P * T5 * M5 + 2 * K * C * L),
+                 fold_ops(2 * K, T5, M5, n))))
+    for shape in ((2, D, C, C, LOAD_KEY_LIMBS, n), (bits, bitdecomp._LIFT_ROWS, C, C,
+                                                    par.limbs_ggsw, n)):
+        x1 = limbs(shape)
+        polys = x1.numel() // n
+        out.append(("ntt_fwd", load_note(x1), lambda x1=x1: ntt_cuda.ntt_fwd_cuda(ctx, x1),
+                    (polys * poly_b * (1 + P), polys * P * ntt_ops(n))))
+    T3, M3 = rank * D, C * Lk
+    ct3 = limbs((K, C, L, n))
+    k3 = spectra((S, T3, M3, n)).permute(1, 0, 2, 3, 4).contiguous()
+    gals = tuple(par.trace_gal_els[:S])
+    out.append(("fused_trace", load_note(ct3, k3, gals),
+                lambda: ntt_cuda.fused_trace(ctx, ct3, k3, gals),
+                (poly_b * (2 * K * C * L + S * P * T3 * M3), S * fold_ops(K, T3, M3, n))))
+    T2, M2, Lg = C * Dg, C * Lgk, par.limbs_ggsw
+    x2 = limbs((bits, T2, n))
+    k2 = spectra((1, T2, M2, n))
+    out.append(("fused_external_fold", load_note(x2, k2, Lg, C),
+                lambda: ntt_cuda.fused_external_fold(ctx, x2, k2, Lg, C),
+                (poly_b * (bits * T2 + P * T2 * M2 + bits * C * Lg), fold_ops(bits, T2, M2, n))))
+    return out
+
+
 def vm_call(ctx, name, args):
     from fhe_ram_tpu_torch.ops import ntt_cuda
 
@@ -346,7 +438,7 @@ def main():
                     help="stop after the kernel checks (a first look at new kernels)")
     ap.add_argument("--profile", action="store_true",
                     help="trace one more read, write cycle, batched read, "
-                         "batched read-modify-write, VM cycle, 2^24 read, "
+                         "batched read-modify-write, VM cycle, LOAD, 2^24 read, "
                          "sharded reads (ring, exchange) and sharded RMW with "
                          "torch.profiler: device time by kernel and the "
                          "device's idle share")
@@ -849,6 +941,13 @@ def main():
               predecessor_fn=preds13.exchange_predecessor(pred13["exchange"], chunks,
                                                           stride))
     del chunks
+
+    # kernels 5, 1, 3 and 2 at every shape the VM LOAD gives them at this
+    # preset (load_shapes); the load phase below records what it launches
+    # and fails on a shape not checked here
+    for name, shape, fn, work in load_shapes(PAR, ctx, limbs):
+        check(name, shape, fn, plain_reps=1, work=work)
+        del fn
     emit({"phase": "kernel_checks", "ok": True, "tolerance": 0, "checks": checks,
           "timed_only": timed_only})
     if args.kernels_only:
@@ -896,6 +995,30 @@ def main():
         out = fn()
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
+
+    def traced(what, fn, unprofiled_ms, top=14):
+        """One call of fn under torch.profiler: device time by kernel and
+        the device's idle share against the unprofiled median time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, span_ms = timed(fn)
+        rows = [(e.key, e.device_time_total / 1e3, e.count)
+                for e in prof.key_averages() if e.device_time_total > 0
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(r[1] for r in rows)
+        rows.sort(key=lambda r: -r[1])
+        # the profiler slows the host, so the idle share is taken against
+        # the unprofiled median time, not against the traced span
+        emit({"phase": "profile", "of": what,
+              "span_ms_under_profiler": span_ms,
+              "unprofiled_ms_median": unprofiled_ms,
+              "device_busy_ms": busy_ms if rows else None,
+              "device_idle_share_of_unprofiled_median":
+                  1 - busy_ms / unprofiled_ms if rows else None,
+              "by_kernel": [{"name": k[:60], "ms": ms, "count": c}
+                            for k, ms, c in rows[:top]]})
 
     def launches_of(fn):
         """(result, ms, launches by kernel) of one call."""
@@ -1589,6 +1712,186 @@ def main():
           "plain_vm_cycle_ms": plain_vm_ms})
     del p_rd, p_fetched, p_state, vm_inputs, final
 
+    # ---- the VM LOAD at PARAMS_2_18_TURBO_READOPT (vm/bitdecomp.py) ---------
+    # The port's own client makes the bootstrapping key of the read phase's
+    # secret (flat coefficient form, gadget of LOAD_KEY_LIMBS limbs); a word
+    # read from the RAM cell's server is decomposed into its 32 bits: the
+    # word form and the prepared (lifted) GGSW bits
+    from fhe_ram_tpu_torch.core import ggsw, keyswitch
+    from fhe_ram_tpu_torch.vm import bitdecomp
+
+    LB = LOAD_BYTE_BITS * W
+    phases = -(-LOAD_BYTE_BITS // LOAD_CHUNK)
+    steps = PAR.rank * n
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    t0 = time.time()
+    bsk_key = bitdecomp.bootstrap_key_fast(PAR, ctx, sk, s_ntt, src, limbs=LOAD_KEY_LIMBS,
+                                           chunk=LOAD_KEY_CHUNK)
+    torch.cuda.synchronize()
+    key_s = time.time() - t0
+    key_peak = torch.cuda.max_memory_allocated() - base_bytes
+    lidx = int(np.random.default_rng(args.seed + 30).integers(0, PAR.max_addr))
+    fetched = server.read(state, prepared(lidx))
+    decode(fetched, lidx, "the LOAD's read")
+    lwant = sum(int(data[lidx * W + i]) << (LOAD_BYTE_BITS * i) for i in range(W))
+    # the shapes the wrappers of the LOAD's path are called at, and how often
+    load_seen = {k: collections.Counter() for k in LOAD_WRAPPERS.values()}
+    real_load = {a: getattr(ntt_cuda, a) for a in LOAD_WRAPPERS}
+
+    def record_load(on):
+        for attr, name in LOAD_WRAPPERS.items():
+            if not on:
+                setattr(ntt_cuda, attr, real_load[attr])
+                continue
+
+            def call(ctx_, *a, _attr=attr, _name=name, **kw):
+                load_seen[_name][load_note(*a, **kw)] += 1
+                return real_load[_attr](ctx_, *a, **kw)
+            setattr(ntt_cuda, attr, call)
+
+    def load(key):
+        return bitdecomp.load_word(PAR, ctx, fetched, key, ekp, LB)
+
+    def counted_load(key, what, **want):
+        record_load(True)
+        try:
+            out, ms, delta = launches_of(lambda: load(key))
+        finally:
+            record_load(False)
+        expect_launches(what, delta, **want)
+        return out, ms, delta
+
+    # launches of a load, from the code: a chain step is one keyed product
+    # (kernel 5) and, with the key in a coefficient form, the transform of
+    # its GGSW pair; a phase is rank*N steps and one trace; the lift folds
+    # each digit row against each mask component's tensor key and
+    # transforms the lifted stack once
+    lift_folds = bitdecomp._LIFT_ROWS * PAR.rank
+    (lword, lprep), first_ms, load_launches = counted_load(
+        bsk_key, "load", fused_external_fold_batched=phases * steps,
+        ntt_fwd=phases * steps + 1, fused_trace=phases, fused_external_fold=lift_folds)
+    per_load = {k: dict(v) for k, v in load_seen.items()}   # shape -> launches a load
+    load_ms, load_event_ms = [], []
+    for _ in range(LOAD_TIMED):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        again = load(bsk_key)
+        ev1.record()
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        load_event_ms.append(ev0.elapsed_time(ev1))
+        if not (torch.equal(again[0], lword) and torch.equal(again[1], lprep)):
+            fail("load: two loads of one word differ")
+    del again
+    # decode (outside the counted window): the word, then a select of an
+    # encrypted m by each of some lifted bits
+    got = fheuint.decrypt_word(PAR, ctx, s_ntt, lword, LB)
+    if got != lwant:
+        fail(f"load at {lidx}: the word decodes to {got:#x}, stored {lwant:#x}")
+    bit_noise = fheuint.word_noise_log2(PAR, ctx, s_ntt, lword, lwant, LB)
+    if not bit_noise < -(PAR.k_pt + 1):
+        fail(f"load at {lidx}: bit noise 2^{bit_noise:.2f} over the bound")
+    m_sel = 3
+    mv = np.zeros(n, dtype=np.int64)
+    mv[0] = m_sel
+    ct_m = glwe.encrypt(PAR, ctx, s_ntt, glwe.encode_vec(PAR, mv, device=dev), src)
+    select_noise = {}
+    for j in LOAD_SELECT_BITS:
+        b = (lwant >> j) & 1
+        sel = ggsw.external_product(PAR, ctx, ct_m, lprep[:, j])
+        val, noise = glwe.decode_coeff0(PAR, glwe.phase(PAR, ctx, s_ntt, sel), b * m_sel)
+        if int(val) != b * m_sel or not noise < -(PAR.k_pt + 1):
+            fail(f"load: the select by lifted bit {j} decodes to {int(val)} (noise "
+                 f"2^{float(noise):.2f}), expected {b * m_sel}")
+        select_noise[j] = float(noise)
+    load_rec = {"phase": "load", "ok": True, "preset": "PARAMS_2_18_TURBO_READOPT",
+                "address": lidx, "word": f"{lwant:#010x}", "bits": LB,
+                "byte_bits": LOAD_BYTE_BITS, "chunk": LOAD_CHUNK,
+                "key_limbs": LOAD_KEY_LIMBS, "key_shape": list(bsk_key.shape),
+                "key_bytes": bsk_key.numel() * 4, "key_setup_seconds": round(key_s, 2),
+                "key_setup_peak_device_bytes": key_peak,
+                "load_ms_median": statistics.median(load_ms), "load_ms": load_ms,
+                "load_event_ms": load_event_ms, "first_load_ms": first_ms,
+                "launches_per_load": {k: v for k, v in load_launches.items() if v},
+                "worst_bit_noise_log2": bit_noise,
+                "select_noise_log2": select_noise,
+                "worst_select_noise_log2": max(select_noise.values()),
+                "noise_bound_log2": -(PAR.k_pt + 1)}
+
+    # ---- the first LOAD_PREFIX chain steps of that word through the plain
+    # versions: the first phase's accumulators, then its trace, its affine
+    # and the lift of its rows, each bit-equal
+    R_lift = bitdecomp._LIFT_ROWS
+    ks0 = list(range(min(LOAD_CHUNK, LOAD_BYTE_BITS)))
+    cts0 = torch.repeat_interleave(bitdecomp.unsigned_bytes(PAR, fetched, LOAD_BYTE_BITS),
+                                   len(ks0) * R_lift, dim=0)
+    acc0, amounts0 = bitdecomp.chain_start(
+        PAR, cts0, *bitdecomp.phase_tests(PAR, W, ks0, R_lift, 1))
+
+    def load_prefix():
+        acc = bitdecomp.chain(PAR, ctx, acc0, bsk_key, range(LOAD_PREFIX),
+                              amounts0[:, :LOAD_PREFIX])
+        tr = keyswitch.trace(PAR, ctx, acc, ekp.atk_glwe)
+        rk, bk = bitdecomp.phase_bits(PAR, tr, W, len(ks0), R_lift)
+        return acc, tr, rk, bk, bitdecomp.bits_to_prepared(
+            PAR, ctx, rk.reshape((-1,) + tuple(rk.shape[2:])), ekp)
+
+    k_pre, k_pre_ms = timed(load_prefix)
+    with ntt_cuda.plain_versions():
+        p_pre, p_pre_ms = timed(load_prefix)
+    for what, a_, b_ in zip(("chain", "trace", "digit rows", "bits", "lift"), k_pre, p_pre):
+        if not torch.equal(a_, b_):
+            fail(f"load_vs_plain: {what} after {LOAD_PREFIX} steps, kernels and plain "
+                 "versions disagree")
+    del k_pre, p_pre, acc0, amounts0, cts0
+
+    # ---- the key prepared once, and one load on it: bit-equal -----------------
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    bsk_prep = ggsw.prepare(ctx, bsk_key.view((steps, 2, PAR.dnum_ct, C, C,
+                                               LOAD_KEY_LIMBS, n)))
+    ev1.record()
+    torch.cuda.synchronize()
+    key_prep_ms = ev0.elapsed_time(ev1)
+    prep_peak = torch.cuda.max_memory_allocated() - base_bytes
+    key_polys = bsk_key.numel() // n
+    k_bound = bound(key_polys * poly_b * (1 + P), key_polys * P * ntt_ops(n))
+    timed_only.setdefault("ntt_fwd", []).append({
+        "shape": f"x{list(bsk_prep.shape[1:])} (the LOAD's key, prepared once)",
+        "ms": key_prep_ms, "bound_ms": k_bound[0], "bound_by": k_bound[1],
+        "held_by": "the load on the prepared key == the load on the coefficient key"})
+    (pword, pprep), prep_load_ms, prep_launches = counted_load(
+        bsk_prep, "load on the prepared key", fused_external_fold_batched=phases * steps,
+        ntt_fwd=1, fused_trace=phases, fused_external_fold=lift_folds)
+    if not (torch.equal(pword, lword) and torch.equal(pprep, lprep)):
+        fail("load: the prepared key's load differs from the coefficient key's")
+    for name, notes in load_seen.items():
+        checked = {r["shape"] for r in checks.get(name, [])}
+        if not notes or not set(notes) <= checked:
+            fail(f"{name}: the LOAD launched shapes {sorted(set(notes) - checked)} "
+                 "that no kernel check held against the plain version")
+    load_rec.update({
+        "prepared_key_bytes": bsk_prep.numel() * 4, "key_prepare_ms": key_prep_ms,
+        "prepared_peak_device_bytes": prep_peak, "prepared_load_ms": prep_load_ms,
+        "prepared_launches_per_load": {k: v for k, v in prep_launches.items() if v},
+        "prepared_equal_to_coefficient": True,
+        "launches_per_load_by_shape": per_load})
+    emit(load_rec)
+    emit({"phase": "load_vs_plain", "ok": True, "address": lidx, "steps": LOAD_PREFIX,
+          "tests": len(ks0) * R_lift * W,
+          "compared": "accumulators, trace, digit rows, value bits, prepared lift",
+          "kernel_ms": k_pre_ms, "plain_ms": p_pre_ms})
+    if args.profile:
+        traced("load_word (coefficient key)", lambda: load(bsk_key),
+               statistics.median(load_ms), top=24)
+    del bsk_prep, pword, pprep, bsk_key, lword, lprep, fetched
+    torch.cuda.empty_cache()
+
     # ---- the 2^24 configuration: the unsharded read, then the row-sharded ----
     # paths on a mesh whose shards all lie on this card (kernels 13 and 14)
     bctx = get_ntt_context(BPAR.n, BPAR.primes)
@@ -1945,28 +2248,6 @@ def main():
 
     # ---- optional: where the time of one call of each path goes -------------
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        def traced(what, fn, unprofiled_ms):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                _, span_ms = timed(fn)
-            rows = [(e.key, e.device_time_total / 1e3, e.count)
-                    for e in prof.key_averages() if e.device_time_total > 0
-                    and e.device_type == torch.autograd.DeviceType.CUDA]
-            busy_ms = sum(r[1] for r in rows)
-            rows.sort(key=lambda r: -r[1])
-            # the profiler slows the host, so the idle share is taken against
-            # the unprofiled median time, not against the traced span
-            emit({"phase": "profile", "of": what,
-                  "span_ms_under_profiler": span_ms,
-                  "unprofiled_ms_median": unprofiled_ms,
-                  "device_busy_ms": busy_ms if rows else None,
-                  "device_idle_share_of_unprofiled_median":
-                      1 - busy_ms / unprofiled_ms if rows else None,
-                  "by_kernel": [{"name": k[:60], "ms": ms, "count": c}
-                                for k, ms, c in rows[:14]]})
-
         ap_ = batch_aps[0]
         traced("read", lambda: server.read(state, ap_), statistics.median(read_ms))
         st0, cap_, addr, w_ct, _, _ = last_cycle
@@ -2020,7 +2301,7 @@ def main():
                statistics.median(srmw_ms))
 
     # ---- the kernels' line --------------------------------------------------
-    # launches over the thirteen paths, each counted from 0 just before it
+    # launches over the fifteen paths, each counted from 0 just before it
     # was driven to just after (comparisons and read-backs are outside; the
     # per-level batched RMW: its four timed calls).  Kernel 12 lies on no
     # path of either package: its checks above are all it gets.
@@ -2031,7 +2312,8 @@ def main():
                "composed_batch": c_batch_launches,
                "vm_cycle": vm_launches, "read_2_24": read24_launches,
                "sharded_read": shread_launches, "sharded_batch": shbatch_launches,
-               "sharded_rmw": srmw_launches}
+               "sharded_rmw": srmw_launches, "load": load_launches,
+               "load_prepared": prep_launches}
     on_no_path = ("fused_external",)
     total_launches = {k: sum(p_[k] for p_ in by_path.values()) for k in path_launches}
     for k, v in total_launches.items():
@@ -2062,12 +2344,18 @@ def main():
                # redesign queue: launches x (ms - bound_ms), for kernels 9-11
                # summed over the shapes the first VM cycle launched (every
                # cycle launches the same; the cycle is their only path),
-               # else at this shape
+               # else at this shape, the LOAD's launches at the shapes it
+               # launched
                "launches_x_excess_ms": (
                    total_launches[name] / sum(seen[name].values())
                    * sum(c_ * (r["ms"] - r["bound_ms"]) for r in checks[name]
                          for s_, c_ in seen[name].items() if r["shape"] == s_)
-                   if name in VM_KERNELS else total_launches[name] * (rec["ms"] - b_ms))}
+                   if name in VM_KERNELS else
+                   (total_launches[name] - sum(load_seen.get(name, {}).values()))
+                   * (rec["ms"] - b_ms)
+                   + sum(c_ * (r["ms"] - r["bound_ms"]) for r in checks[name]
+                         for s_, c_ in load_seen.get(name, {}).items()
+                         if r["shape"] == s_))}
         for k_ in ("per_level_ms", "predecessor_ms"):
             if k_ in rec:
                 out[k_] = rec[k_]
@@ -2140,8 +2428,9 @@ def main():
         if k["name"] in ("ntt_fwd", "ntt_inv", "fused_external", "fused_external_fold",
                          "fused_external_fold_batched", "fused_pack_merge", "fused_trace",
                          "fused_split"):
-            k["per_shape"] = [{f: r.get(f) for f in ("shape", "ms", "plain_ms", "bound_ms",
-                                                     "bound_by", "predecessor_ms")}
+            k["per_shape"] = [{**{f: r.get(f) for f in ("shape", "ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "predecessor_ms")},
+                               "launches_per_load": per_load.get(k["name"], {}).get(r["shape"])}
                               for r in checks[k["name"]] + timed_only.get(k["name"], [])]
         if k["name"] in VM_KERNELS:
             k["per_shape"] = [{f: r[f] for f in ("shape", "ms", "plain_ms",

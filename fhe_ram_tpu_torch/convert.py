@@ -3,7 +3,8 @@
 `from_reference` takes what that client produced, as numpy arrays (or
 anything `np.asarray` accepts) -- the secret, the coefficient-domain
 evaluation keys, the encrypted RAM, an address's coordinates, an
-encrypted write word or a stack of them, the VM's operands -- and returns
+encrypted write word or a stack of them, the VM's operands, the LOAD's
+bootstrapping key -- and returns
 this package's objects on the asked device.  This package then
 prepares keys and addresses with its own `prepare`: spectral forms are
 not carried across, because each package defines its own spectrum
@@ -43,6 +44,7 @@ class ReferenceState:
     word: torch.Tensor | None = None  # int32[W, C, L, N]
     words: torch.Tensor | None = None  # int32[B, W, C, L, N]
     vm: dict | None = None             # name -> word [C, L, N] or prepared bits
+    bsk: torch.Tensor | None = None    # [rank*N, 2*D*C*C2*Lg, N] or [rank*N, 2, D, C, C2, Lg, N]
 
 
 def _tensor(x, device):
@@ -65,7 +67,7 @@ def _prepared_bits(x, device, primes):
 
 
 def from_reference(sk=None, keys=None, ram=None, address=None, word=None,
-                   words=None, vm=None, device="cuda") -> ReferenceState:
+                   words=None, vm=None, bsk=None, device="cuda") -> ReferenceState:
     """sk: int32[rank, N]; keys: an object or dict with `atk_glwe`
     {g: [D, rank, C2, L, N]}, `atk_ggsw` {g: ...} and `tsk`; ram:
     int32[W, R, C, L, N]; address: an object with `coordinates` or the
@@ -75,8 +77,14 @@ def from_reference(sk=None, keys=None, ram=None, address=None, word=None,
     operands by name, each a word-form GLWE [C, L, N] (`encrypt_word`) or
     prepared bits [P, W, D, C, C2, Lg, N] (`encrypt_prepared`, the
     pointer's too) of the JAX client's default transform over the presets'
-    primes."""
+    primes; bsk: the LOAD's bootstrapping key in a coefficient form,
+    flat [rank*N, 2*D*C*C2*Lg, N] (`bootstrap_key_fast`) or 7-D
+    [rank*N, 2, D, C, C2, Lg, N] (`bootstrap_key(prepared=False)`), kept in
+    the form given."""
     device = require_device(device)
+    if bsk is not None and np.ndim(bsk) not in (3, 7):
+        raise ValueError(f"a coefficient bootstrapping key is 3-D or 7-D, got "
+                         f"{np.shape(bsk)}")
     out_keys = None
     if keys is not None:
         out_keys = EvaluationKeys(
@@ -100,7 +108,8 @@ def from_reference(sk=None, keys=None, ram=None, address=None, word=None,
         vm=None if vm is None else {
             name: (_prepared_bits(x, device, DEFAULT_PRIMES) if np.ndim(x) == 7
                    else _tensor(x, device))
-            for name, x in vm.items()})
+            for name, x in vm.items()},
+        bsk=None if bsk is None else _tensor(bsk, device))
 
 
 def stack_addresses(addrs) -> tuple:

@@ -56,15 +56,28 @@ def cmux_keyed(params: Params, ctx: NTTContext, bit_prep, high, low,
                                        base=low, trunc=trunc)
 
 
-def key_rows(prep, trunc: tuple = (None, None)):
+def key_rows(prep, trunc: tuple = (None, None), digits: int | None = None):
     """Every bit of prepared bits [P, W, D, C, C2, Lg, N] as the kernels'
     key rows [W, P, C*D, C2*Lg, N] (component-major digit rows, M over (c2,
     limb)), in one copy, keeping the top in_digits gadget rows and the top
-    key_limbs limbs."""
+    key_limbs limbs.  digits: pad to that many gadget rows with zero rows
+    (see operand_digits)."""
     in_digits, key_limbs = trunc
     p = prep[:, :, :in_digits, ..., :key_limbs, :]
+    if digits is not None and p.shape[2] < digits:
+        p = torch.cat([p, p.new_zeros(p.shape[:2] + (digits - p.shape[2],)
+                                      + p.shape[3:])], dim=2)
     P, W, D, C, C2, Lg, n = p.shape
     return p.permute(1, 0, 3, 2, 4, 5, 6).reshape(W, P, C * D, C2 * Lg, n)
+
+
+def operand_digits(preps, trunc: tuple = (None, None)) -> int:
+    """The gadget rows of the widest of several operands' bits after the
+    truncation.  An operand with fewer (a LOAD's lifted bits,
+    vm/bitdecomp.py: 2 digit rows) is padded with zero rows to it: its
+    products then decompose only the top digits of the ciphertext, as an
+    external product against it alone does."""
+    return max(p[:, :, :trunc[0]].shape[2] for p in preps)
 
 
 def ggsw_key_rows(prep, j: int, trunc: tuple = (None, None)):
@@ -151,8 +164,9 @@ def carry_chain(params: Params, ctx: NTTContext, specs, a_prep, b_preps, groups,
     F0 = _constant_words(params, tuple((sp[3](c),) for sp in specs for c in (0, 1)),
                          bits, device)
     msb_first = list(range(bits - 1, -1, -1))
-    keys = torch.stack([key_rows(p, trunc)[msb_first]
-                        for p in list(b_preps) + [a_prep]], dim=1)
+    preps = list(b_preps) + [a_prep]
+    D = operand_digits(preps, trunc)
+    keys = torch.stack([key_rows(p, trunc, D)[msb_first] for p in preps], dim=1)
     deltas = _constant_words(params, tuple(_one_hot(j, bits) for j in msb_first),
                              bits, device)
     return ntt_cuda.fused_dp_chain(
@@ -171,8 +185,9 @@ def truth_table(params: Params, ctx: NTTContext, tables, a_prep, b_preps,
         params, tuple((t[i],) for t in tables for i in (3, 1, 2, 0)), bits,
         a_prep.device).reshape((len(tables), 2, 2) + (params.rank + 1,
                                                        params.limbs_ct, params.n))
-    keys = torch.stack([key_rows(p, trunc)[:bits] for p in list(b_preps) + [a_prep]],
-                       dim=1)
+    preps = list(b_preps) + [a_prep]
+    D = operand_digits(preps, trunc)
+    keys = torch.stack([key_rows(p, trunc, D)[:bits] for p in preps], dim=1)
     return ntt_cuda.fused_bitwise(ctx, leaves[:, 0], leaves[:, 1], keys,
                                   tuple(tuple(g) for g in groups))
 

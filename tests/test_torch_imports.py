@@ -29,6 +29,7 @@ def test_port_has_the_expected_layout(monkeypatch):
                  "ram/address.py", "ram/ram.py", "tools/time_fold_chunks.py",
                  "vm/fheuint.py", "vm/circuits.py", "vm/arithmetic.py",
                  "vm/store.py", "vm/conversion.py", "vm/cycle.py",
+                 "vm/bitdecomp.py", "examples/vm_load_demo.py",
                  "parallel/collective.py", "parallel/mesh.py"):
         assert want in names, want
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
@@ -84,6 +85,8 @@ def test_importing_the_port_loads_no_jax():
         "from fhe_ram_tpu_torch.utils import io, profiling\n"
         "from fhe_ram_tpu_torch.tools import time_fold_chunks\n"
         "from fhe_ram_tpu_torch.vm import fheuint, circuits, arithmetic, store, conversion, cycle\n"
+        "from fhe_ram_tpu_torch.vm import bitdecomp\n"
+        "assert callable(bitdecomp.load_word) and callable(bitdecomp.bootstrap_key_fast)\n"
         "from fhe_ram_tpu_torch.parallel import collective, mesh\n"
         "assert callable(collective.ring_all_gather) and callable(collective.exchange)\n"
         "assert callable(mesh.sharded_read_fn) and callable(mesh.batched_rmw_fn)\n"

@@ -18,19 +18,21 @@ needs it.  The other geometries are compared in
 tests/test_torch_read_presets.py."""
 
 import functools
-from concurrent.futures import ThreadPoolExecutor
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
 from fhe_ram_tpu import params as jparams
 from fhe_ram_tpu.ops.ntt import get_ntt_context as jget_ctx
 from fhe_ram_tpu.core import glwe as jglwe
-from fhe_ram_tpu.core import ggsw as jggsw
 from fhe_ram_tpu.core import keys as jkeys
 from fhe_ram_tpu.core import rng as jrng
 from fhe_ram_tpu.ram import address as jaddress
@@ -68,6 +70,127 @@ def _addresses(par):
 WRITE_WORD = np.array([0x5A, 0xC3, 0x17, 0x80], dtype=np.uint8)
 
 
+# The JAX package's server functions at PARAMS_TEST_SMALL, jitted as _jit
+# is.  argv[1] names them: "refs", read_impl, rpw_impl and write_impl (of
+# the write word after that rpw) in ONE jitted function, run at every
+# address given (at this preset, with no read-path truncation, the read and
+# the rpw share everything but the persisted tree and the three share the
+# key preparation: one compile costs less than two); "read_batch",
+# read_batch_impl; "rmw_batch", rmw_batch_impl.  argv[2] gives the shapes
+# of the arrays (JSON, name -> shape; a "coord" of "refs" is one address's):
+# the function is compiled from them at once, then run on the arrays of
+# argv[3] when that file appears; the outputs go to argv[4].  Each runs in a
+# process of its own, started before the JAX client makes the arrays: with
+# its own interpreter lock it traces and compiles beside the client, the
+# other references and the port.
+_REF_SCRIPT = """
+import functools, json, os, sys, time
+import numpy as np
+import jax
+import jax.numpy as jnp
+from fhe_ram_tpu import params as jparams
+from fhe_ram_tpu.ops.ntt import get_ntt_context
+from fhe_ram_tpu.core import ggsw, keys, keyswitch
+from fhe_ram_tpu.ram import address, ram
+
+jit = functools.partial(jax.jit, compiler_options={
+    "xla_backend_optimization_level": 0, "xla_cpu_parallel_codegen_split_count": 1,
+    "xla_cpu_use_fusion_emitters": False})
+which, spec, in_file, out_file = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3], sys.argv[4]
+par = jparams.PARAMS_TEST_SMALL
+ctx = get_ntt_context(par.n, par.primes)
+prep_coords = lambda cb: tuple(jax.vmap(lambda g: ggsw.prepare(ctx, g))(x) for x in cb)
+prepared = lambda atk, atk_ggsw, tsk: keys.prepare(par, keys.EvaluationKeys(atk, atk_ggsw, tsk))
+
+def read_rpw_write(d, a, w, atk, atk_ggsw, tsk):
+    k = prepared(atk, atk_ggsw, tsk)
+    c = address.prepare(ctx, address.Address(a)).coordinates
+    rpw = ram.rpw_impl(par, ctx, d, c, k.atk_glwe)
+    return (ram.read_impl(par, ctx, d, c, k.atk_glwe), rpw,
+            ram.write_impl(par, ctx, d, rpw[2], w, a, k))
+
+def args(get):
+    group = lambda pre: {int(k[len(pre):]): get(k) for k in spec if k.startswith(pre)}
+    coords = tuple(get(f"coord{j}") for j in range(len(group("coord"))))
+    if which == "read_batch":
+        return get("ram"), coords, group("atk_")
+    return (get("ram"), coords, get("word" if which == "refs" else "words"),
+            group("atk_"), group("atkggsw_"), get("tsk"))
+
+fn = {"refs": read_rpw_write,
+      "read_batch": lambda d, cb, atk: ram.read_batch_impl(
+          par, ctx, d, prep_coords(cb), {g: keyswitch.key_prepare(ctx, k) for g, k in atk.items()}),
+      "rmw_batch": lambda d, cb, w, atk, atk_ggsw, tsk: ram.rmw_batch_impl(
+          par, ctx, d, prep_coords(cb), cb, w, prepared(atk, atk_ggsw, tsk))}[which]
+compiled = jit(fn).lower(*args(lambda k: jax.ShapeDtypeStruct(spec[k], jnp.int32))).compile()
+deadline = time.time() + 900
+while not os.path.exists(in_file):
+    assert time.time() < deadline, "no input arrived"
+    time.sleep(0.05)
+inp = dict(np.load(in_file))
+if which == "refs":
+    out = {}
+    for i in range(inp["coord0"].shape[0]):
+        r, (o, d, tree), w = compiled(*args(
+            lambda k: inp[k][i] if k.startswith("coord") else inp[k]))
+        out.update({f"read{i}": r, f"rpw_out{i}": o, f"rpw_data{i}": d, f"write{i}": w},
+                   **{f"rpw_tree{i}_{l}": t for l, t in enumerate(tree)})
+elif which == "read_batch":
+    out = dict(out=compiled(*args(inp.__getitem__)))
+else:
+    out = dict(zip(("outs", "data"), compiled(*args(inp.__getitem__))))
+np.savez(out_file, **{k: np.asarray(v) for k, v in out.items()})
+"""
+
+
+def _reference(tmp, which, shapes):
+    """Start _REF_SCRIPT, which compiles from `shapes` at once; returns
+    (give, result): give(arrays) hands it its arrays, result() waits for it
+    and returns its outputs."""
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(root),
+                                                        os.environ.get("PYTHONPATH")])))
+    in_file = tmp / f"{which}_in.npz"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _REF_SCRIPT, which,
+         json.dumps({k: list(v) for k, v in shapes.items()}), str(in_file),
+         str(tmp / f"{which}_out.npz")], cwd=root, env=env)
+
+    def give(arrays):
+        for k, v in arrays.items():
+            lead = v.shape[1:] if which == "refs" and k.startswith("coord") else v.shape
+            assert tuple(lead) == tuple(shapes[k]), (which, k, v.shape, shapes[k])
+        np.savez(tmp / f"{which}_part.npz", **arrays)
+        os.replace(tmp / f"{which}_part.npz", in_file)   # whole, or not there
+
+    outputs = {}
+
+    def result():
+        if not outputs:
+            assert proc.wait(timeout=600) == 0, which
+            outputs.update(np.load(tmp / f"{which}_out.npz"))
+        return outputs
+    result.proc = proc
+    return give, result
+
+
+def _shapes(par, batch=None):
+    """Shapes of the arrays the references take at `par`: the RAM, the
+    coordinates of one address (of `batch` with it), a write word, the
+    keys."""
+    C, L, n, rank = par.rank + 1, par.limbs_ct, par.n, par.rank
+    lead = () if batch is None else (batch,)
+    out = dict(ram=(par.word_size, par.num_rows, C, L, n), word=(par.word_size, C, L, n),
+               tsk=(rank, par.dnum_ggsw, C, C, par.limbs_evk_ggsw, n))
+    for j, row in enumerate(par.base2d().rows):
+        out[f"coord{j}"] = lead + (len(row.bases), par.dnum_ct, C, C, par.limbs_ggsw, n)
+    for g in par.trace_gal_els:
+        out[f"atk_{g}"] = (par.dnum_ct, rank, C, par.limbs_evk_trace, n)
+    out["atkggsw_-1"] = (par.dnum_ggsw, rank, C, par.limbs_evk_ggsw, n)
+    return out
+
+
 def _keygen(jpar, jctx, sk, src):
     """(secret_prepare, jkeys.keygen) under one jit: the same keys and the
     same stream state as the eager calls (threefry is deterministic), in
@@ -84,11 +207,37 @@ def _keygen(jpar, jctx, sk, src):
 
 
 @pytest.fixture(scope="module")
-def client():
+def client(tmp_path_factory):
     """The JAX client's secret, keys, RAM and addresses, the JAX side's
     jitted server functions, and the port's server on the same
     ciphertexts."""
     jpar, tpar = jparams.PARAMS_TEST_SMALL, tparams.PARAMS_TEST_SMALL
+    # the JAX references, each in a process of its own, compiling while the
+    # JAX client below makes their arrays: read, rpw and write at every
+    # fixture address; read_batch_impl at the last three; rmw_batch_impl's
+    # read-outs and new RAM at the last two
+    tmp = tmp_path_factory.mktemp("read_refs")
+    rmw_idxs = _addresses(jpar)[2:]
+    batch_shapes = {k: v for k, v in _shapes(jpar, 3).items()
+                    if k == "ram" or k.startswith(("coord", "atk_"))}
+    rmw_shapes = {k: v for k, v in _shapes(jpar, len(rmw_idxs)).items() if k != "word"}
+    rmw_shapes["words"] = (len(rmw_idxs),) + _shapes(jpar)["word"]
+    refs = _reference(tmp, "refs", _shapes(jpar))
+    batch_ref = _reference(tmp, "read_batch", batch_shapes)
+    rmw_ref = _reference(tmp, "rmw_batch", rmw_shapes)
+    try:
+        yield from _client(jpar, tpar, (refs, batch_ref, rmw_ref), rmw_idxs)
+    finally:
+        for _, result in (refs, batch_ref, rmw_ref):
+            if result.proc.poll() is None:
+                result.proc.kill()
+            result.proc.wait()
+
+
+def _client(jpar, tpar, references, rmw_idxs):
+    """The client fixture's body: the JAX client hands each reference
+    (give, result) of `references` its arrays."""
+    (give_refs, refs), (give_batch, batch_ref), (give_rmw, rmw_ref) = references
     jctx = jget_ctx(jpar.n, jpar.primes)
     src = jrng.Source(7)
     sk = jrng.ternary_secret(src.split(), jpar.rank, jpar.n, jpar.xs_density)
@@ -99,67 +248,27 @@ def client():
     addrs = {idx: jaddress.encrypt(jpar, jctx, js_ntt, idx, src)
              for idx in _addresses(jpar)}
 
-    def prepared(atk, atk_ggsw, tsk):
-        return jkeys.prepare(jpar, jkeys.EvaluationKeys(atk, atk_ggsw, tsk))
-
-    # read_impl, rpw_impl and write_impl (of w_ct after that rpw) in ONE
-    # jitted function: at this preset (no read-path truncation) the read and
-    # the rpw share everything but the persisted tree, the three share the
-    # key preparation, and one compile costs less than two (the write runs
-    # at every address; at this size that is milliseconds)
-    def read_rpw_write(d, a, w, atk, atk_ggsw, tsk):
-        keys = prepared(atk, atk_ggsw, tsk)
-        coords = jaddress.prepare(jctx, a).coordinates
-        rpw = jram.rpw_impl(jpar, jctx, d, coords, keys.atk_glwe)
-        return (jram.read_impl(jpar, jctx, d, coords, keys.atk_glwe), rpw,
-                jram.write_impl(jpar, jctx, d, rpw[2], w, a.coordinates, keys))
-
-    jread_rpw_write = _jit(read_rpw_write)
     w_ct = jram.encrypt_write_word(jpar, jctx, js_ntt,
                                    WRITE_WORD[:jpar.word_size], src)
-    jkey_args = (ek.atk_glwe, ek.atk_ggsw, ek.tsk)
     # the batched RMW's words and write words (the stream's next draws)
-    rmw_idxs = _addresses(jpar)[2:]
     rmw_words = np.array([[0x5A, 0xC3, 0x17, 0x80], [0x01, 0xFE, 0x7F, 0x33]],
                          dtype=np.uint8)[:, :jpar.word_size]
     rmw_w_cts = [jram.encrypt_write_word(jpar, jctx, js_ntt, w, src)
                  for w in rmw_words]
 
     def coords_batch(idxs):
-        return tuple(jnp.stack([addrs[i].coordinates[j] for i in idxs], axis=0)
-                     for j in range(len(addrs[idxs[0]].coordinates)))
+        return {f"coord{j}": np.stack([np.asarray(addrs[i].coordinates[j]) for i in idxs])
+                for j in range(len(addrs[idxs[0]].coordinates))}
 
-    def read_batch_ref():
-        """read_batch_impl at the last three fixture addresses."""
-        return np.asarray(_jit(
-            lambda d, cb, atk: jram.read_batch_impl(
-                jpar, jctx, d,
-                tuple(jax.vmap(lambda g: jggsw.prepare(jctx, g))(x) for x in cb),
-                {g: jkeys.keyswitch.key_prepare(jctx, k) for g, k in atk.items()}))(
-                    ram_ct, coords_batch(_addresses(jpar)[1:]), ek.atk_glwe))
-
-    def rmw_batch_ref():
-        """rmw_batch_impl's read-outs and new RAM at the last two fixture
-        addresses."""
-        want_outs, want_data = _jit(
-            lambda d, cb, w, atk, atk_ggsw, tsk: jram.rmw_batch_impl(
-                jpar, jctx, d,
-                tuple(jax.vmap(lambda g: jggsw.prepare(jctx, g))(x) for x in cb),
-                cb, w, prepared(atk, atk_ggsw, tsk)))(
-                    ram_ct, coords_batch(rmw_idxs), jnp.stack(rmw_w_cts), *jkey_args)
-        return np.asarray(want_outs), np.asarray(want_data)
-
-    # The three JAX references compile side by side in threads (XLA
-    # compiles outside the interpreter lock) while the port's side is set
-    # up and the first tests run; each accessor waits for its own.
-    pool = ThreadPoolExecutor(3)
-    jresults = {
-        "refs": pool.submit(lambda: {idx: jread_rpw_write(ram_ct, addrs[idx], w_ct,
-                                                          *jkey_args)
-                                     for idx in _addresses(jpar)}),
-        "batch": pool.submit(read_batch_ref),
-        "rmw_batch": pool.submit(rmw_batch_ref)}
-    pool.shutdown(wait=False)
+    key_arrays = dict(tsk=np.asarray(ek.tsk),
+                      **{f"atk_{g}": np.asarray(k) for g, k in ek.atk_glwe.items()},
+                      **{f"atkggsw_{g}": np.asarray(k) for g, k in ek.atk_ggsw.items()})
+    give_refs(dict(ram=np.asarray(ram_ct), **coords_batch(_addresses(jpar)), **key_arrays,
+                 word=np.asarray(w_ct)))
+    give_batch(dict(ram=np.asarray(ram_ct), **coords_batch(_addresses(jpar)[1:]),
+                    **{k: v for k, v in key_arrays.items() if k.startswith("atk_")}))
+    give_rmw(dict(ram=np.asarray(ram_ct), **coords_batch(rmw_idxs), **key_arrays,
+                  words=np.stack([np.asarray(w) for w in rmw_w_cts])))
 
     tctx = tget_ctx(tpar.n, tpar.primes)
     carried = from_reference(sk=np.asarray(sk), keys=ek, ram=ram_ct, device="cpu")
@@ -167,27 +276,31 @@ def client():
     c = SimpleNamespace(
         jpar=jpar, tpar=tpar, jctx=jctx, tctx=tctx, src=src, js_ntt=js_ntt,
         ek=ek, data=data, ram_ct=ram_ct, addrs=addrs, w_ct=w_ct,
-        jkey_args=jkey_args, carried=carried, server=server,
+        carried=carried, server=server,
         s_ntt=tglwe.secret_prepare(tctx, carried.sk))
 
     def jax_read_rpw(idx):
         """(read_impl output, rpw_impl output) at a fixture address."""
-        return jresults["refs"].result()[idx][:2]
+        i, out = _addresses(jpar).index(idx), refs()
+        tree = [out[f"rpw_tree{i}_{l}"] for l in range(len(out))
+                if f"rpw_tree{i}_{l}" in out]
+        return out[f"read{i}"], (out[f"rpw_out{i}"], out[f"rpw_data{i}"], tree)
 
     def jax_write():
         """(the JAX client's write word w_ct, write_impl's new RAM for w_ct
         after the rpw) when WRITE_WORD is written at the third fixture
         address."""
-        return w_ct, np.asarray(jresults["refs"].result()[_addresses(jpar)[2]][2])
+        return w_ct, refs()["write2"]
 
     def jax_read_batch():
         """read_batch_impl at the last three fixture addresses."""
-        return jresults["batch"].result()
+        return batch_ref()["out"]
 
     def jax_rmw_batch():
         """(the words, the JAX client's write words, rmw_batch_impl's
         read-outs and new RAM) at the last two fixture addresses."""
-        return (rmw_words, rmw_w_cts) + jresults["rmw_batch"].result()
+        ref = rmw_ref()
+        return (rmw_words, rmw_w_cts, ref["outs"], ref["data"])
 
     def port_address(idx):
         """(Address, AddressPrepared) of the port for a fixture address."""
@@ -205,7 +318,7 @@ def client():
     c.jax_read_rpw, c.jax_write = jax_read_rpw, jax_write
     c.jax_read_batch, c.jax_rmw_batch = jax_read_batch, jax_rmw_batch
     c.port_address, c.check_word = port_address, check_word
-    return c
+    yield c
 
 
 def test_from_reference_carries_the_clients_state(client):

@@ -13,6 +13,7 @@ them at every preset costs more JAX compiles than the suite's time
 allows.)"""
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 
 import numpy as np
@@ -62,8 +63,9 @@ def _limbs(rnd, shape):
     return rnd.integers(-(1 << 16), 1 << 16, size=shape).astype(np.int32)
 
 
-@pytest.mark.parametrize("name", list(PRESETS))
-def test_read_matches_jax_bit_for_bit(name):
+def _preset(name):
+    """(JAX params, port params, RAM, trace keys, two addresses' coordinates)
+    of a preset, random int32 arrays from a seed."""
     base_name, trunc = PRESETS[name]
     jpar = replace(getattr(jparams, base_name), **trunc)
     tpar = replace(getattr(tparams, base_name), **trunc)
@@ -75,12 +77,35 @@ def test_read_matches_jax_bit_for_bit(name):
     addrs = [tuple(_limbs(rnd, (len(row.bases), jpar.dnum_ct, C, C,
                                 jpar.limbs_ggsw, n))
                    for row in jpar.base2d().rows) for _ in range(2)]
+    return jpar, tpar, ram_ct, atk, addrs
 
-    jctx = jget_ctx(n, jpar.primes)
+
+def _jax_reads(name):
+    """read_impl of the preset's RAM at its two addresses."""
+    jpar, _, ram_ct, atk, addrs = _preset(name)
+    jctx = jget_ctx(jpar.n, jpar.primes)
     jread = _jit(lambda d, a, ks: jram.read_impl(
         jpar, jctx, d, jaddress.prepare(jctx, jaddress.Address(a)).coordinates,
         {g: jks.key_prepare(jctx, k) for g, k in ks.items()}))
+    return [np.asarray(jread(jnp.asarray(ram_ct), tuple(jnp.asarray(c) for c in coords),
+                             {g: jnp.asarray(k) for g, k in atk.items()}))
+            for coords in addrs]
 
+
+@pytest.fixture(scope="module")
+def jax_reads():
+    """Both presets' references, compiled side by side in two threads (XLA
+    compiles outside the interpreter lock)."""
+    pool = ThreadPoolExecutor(len(PRESETS))
+    futures = {name: pool.submit(_jax_reads, name) for name in PRESETS}
+    pool.shutdown(wait=False)
+    return futures
+
+
+@pytest.mark.parametrize("name", list(PRESETS))
+def test_read_matches_jax_bit_for_bit(name, jax_reads):
+    _, tpar, ram_ct, atk, addrs = _preset(name)
+    n = tpar.n
     tctx = tget_ctx(n, tpar.primes)
     carried = from_reference(ram=ram_ct, device="cpu")
     tatk = {g: tks.key_prepare(tctx, torch.from_numpy(k)) for g, k in atk.items()}
@@ -88,10 +113,7 @@ def test_read_matches_jax_bit_for_bit(name):
         tpar, tkeys.EvaluationKeysPrepared(atk_glwe=tatk, atk_ggsw={}, tsk=None),
         device="cpu")
     state = server.init_state(carried.data)
-    for coords in addrs:
-        want = np.asarray(jread(jnp.asarray(ram_ct),
-                                tuple(jnp.asarray(c) for c in coords),
-                                {g: jnp.asarray(k) for g, k in atk.items()}))
+    for coords, want in zip(addrs, jax_reads[name].result()):
         taddr = from_reference(address=coords, device="cpu").address
         got = server.read(state, taddress.prepare(tctx, taddr))
         assert got.dtype == torch.int32 and got.shape == want.shape
