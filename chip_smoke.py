@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's encrypted RAM once on one NVIDIA GPU: reads,
 read-modify-write cycles, batched reads, batched read-modify-writes,
 encrypted VM instruction cycles, the VM LOAD (a word read from the RAM
-decomposed into its encrypted bits), and the 2^24 RAM unsharded and
-row-sharded over a mesh whose shards all lie on the card.
+decomposed into its encrypted bits), the 2^24 RAM unsharded and
+row-sharded over a mesh whose shards all lie on the card, and the batched
+read and read-modify-write over two processes that share the card.
 
     python3 chip_smoke.py [--seed N] [--reads N] [--profile] [--kernels-only]
                           [--verbose-build]
@@ -104,6 +105,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
   sharded_rmw_batch_vs_plain  that batched_rmw_fn call again through the
                  plain versions on the card, collectives included: the
                  read-outs and every new data shard bit-equal
+  dist           parallel/dist.py: two processes on this card joined by gloo
+                 (fhe_ram_tpu_torch/examples/multihost_dryrun.py's workers,
+                 the port only, under a time limit), each a dp 1 x rows 2
+                 mesh of the read phase's RAM (global dp 2 x rows 2): one
+                 batched read of 8 addresses and one batched RMW of 8 others
+                 (words from --seed), launches counted and call shapes
+                 recorded in the workers, 3 timed calls each; the reads equal
+                 read_batch, the RMW's read-outs and every process's whole new
+                 RAM equal the single-process batched_rmw_fn on a dp 2 x rows
+                 2 mesh (held against the plain versions at every shape the
+                 workers launched) and FheRam.rmw_batch; the words decode and
+                 the new words read back; dist_read_ms, dist_rmw_batch_ms (max
+                 over the processes, median of 3) beside the single process's,
+                 and the RMW's int32 all_reduce alone (dist_all_reduce_ms)
   sharded_rmw    2 chained sharded_rmw_fn cycles, then a sharded_rpw_fn +
                  sharded_write_fn pair: each new RAM, un-permuted, equals the
                  unsharded read_prepare_write + write; old words out, new words
@@ -113,7 +128,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  every new data shard bit-equal
   sharded_vs_plain  one sharded read again through the plain versions on the
                  card, collectives included: every shard's output bit-equal
-  kernels        one line for all kernels: launches over the fifteen paths,
+  kernels        one line for all kernels: launches over the seventeen paths,
                  error, time, the plain version's time, the card's bound, and
                  for the collectives the library call's time
 
@@ -129,6 +144,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # The plain versions held against the 2^24 paths allocate single int64
@@ -233,6 +249,14 @@ BIG_READS = 4      # reads at 2^24, unsharded and on each mesh
 SHARDS = 4         # rows shards of the single read, the RMW and the batched read
 BIG_BATCH_READ = 8  # addresses of the sharded batched read (dp 1 x rows 4)
 DP_RMW, ROWS_RMW, NB_BIG_RMW = 2, 2, 4  # the sharded batched RMW's mesh and batch
+
+# -- the dist path (parallel/dist.py) at PARAMS_2_18_TURBO_READOPT ------------
+
+DIST_PROCS = 2      # processes on the one card, joined by gloo
+DIST_ROWS = 2       # rows shards a process (dp 1 a process: global dp 2 x rows 2)
+DIST_BATCH = 8      # addresses of the dist batched read, and of the batched RMW
+DIST_REPS = 3       # timed calls of each path in every worker
+DIST_TIMEOUT_S = 300
 # (shards, pack roots a chunk[, stride]) of every collective launch on those
 # paths, each held against its plain version: the single read's root at rows
 # 4 (driven) and 2 and 8, a batch of 8 roots at rows 4, the batched RMW's 2
@@ -2144,6 +2168,151 @@ def main():
                       "new data shard",
           "plain_sharded_rmw_batch_ms": plain_rb_ms})
 
+    # ---- dist: the batched read and RMW across two processes on this card ---
+    # parallel/dist.py at the RAM cell: DIST_PROCS processes joined by gloo
+    # (NCCL refuses two ranks on one GPU), each a dp 1 x rows 2 mesh, so the
+    # global mesh is dp 2 x rows 2 and the RMW's delta sums cross processes
+    # in one int32 all_reduce a rows shard.  The workers
+    # (fhe_ram_tpu_torch/examples/multihost_dryrun.py, the port only) load
+    # this process's CPU copies of the RAM, the batches, the words and the
+    # keys, count their launches and record the shapes their wrappers were
+    # called at; here they are held against read_batch, the single-process
+    # batched_rmw_fn on a dp 2 x rows 2 mesh (itself held against the plain
+    # versions: every shape the workers launched is one it launched) and
+    # rmw_batch.  Two processes share one card: the times are no scaling
+    # number.
+    from fhe_ram_tpu_torch.examples import multihost_dryrun as dryrun
+
+    dpicks = [int(a) for a in np.random.default_rng(args.seed + 30).choice(
+        PAR.max_addr, size=2 * DIST_BATCH, replace=False)]
+    d_read, d_rmw = dpicks[:DIST_BATCH], dpicks[DIST_BATCH:]
+    d_read_b = stack_addresses([prepared(i) for i in d_read])
+    _, d_prep_b, d_coeff_b = address_batch(d_rmw)
+    d_words, d_w_b = word_batch(args.seed + 31, DIST_BATCH)
+    with tempfile.TemporaryDirectory() as ddir:
+        dryrun.save_inputs(ddir, "PARAMS_2_18_TURBO_READOPT", state.data, d_read_b,
+                           d_prep_b, d_coeff_b, d_w_b, ekp)
+        # this process's allocator caches what the 2^24 phases freed (most of
+        # the card): hand it back, or the workers find no memory
+        torch.cuda.empty_cache()
+        parent_bytes = torch.cuda.memory_reserved()
+        t0 = time.time()
+        results = dryrun.run_workers(DIST_PROCS, "cuda", inputs=ddir, seed=args.seed,
+                                     reps=DIST_REPS, timeout_s=DIST_TIMEOUT_S)
+        dist_s = time.time() - t0
+        for rank, (rc, log) in enumerate(results):
+            if rc != 0:
+                fail(f"dist: worker {rank} "
+                     f"{'hung and was killed' if rc is None else f'exited {rc}'}:\n"
+                     f"{log[-4000:]}")
+        workers = [torch.load(os.path.join(ddir, f"out_{r}.pt"))
+                   for r in range(DIST_PROCS)]
+    d_mesh = mesh_mod.make_mesh(DIST_PROCS * DIST_ROWS, rows=DIST_ROWS,
+                                devices=[dev] * (DIST_PROCS * DIST_ROWS))
+    d_shards = mesh_mod.shard_data_rows(d_mesh, state.data)
+    sp_read, sp_rmw = mesh_mod.batched_read_fn(PAR, d_mesh), mesh_mod.batched_rmw_fn(PAR, d_mesh)
+
+    def sp_read_call():
+        return sp_read(d_shards, mesh_mod.shard_addr_batch(d_mesh, d_read_b), ekp.atk_glwe)
+
+    def sp_rmw_call():
+        return sp_rmw(d_shards, mesh_mod.shard_addr_batch(d_mesh, d_prep_b),
+                      mesh_mod.shard_addr_batch(d_mesh, d_coeff_b),
+                      mesh_mod.shard_addr_batch(d_mesh, d_w_b), ekp)
+    sp_seen = {}
+    with dryrun.recording_shapes(sp_seen):
+        sp_r = sp_read_call()
+        sp_o, sp_new = sp_rmw_call()
+    sp_ms = {"read": [timed(sp_read_call)[1] for _ in range(DIST_REPS)],
+             "rmw_batch": [timed(sp_rmw_call)[1] for _ in range(DIST_REPS)]}
+    plain_sp_ms = {"read": equal_to_plain(sp_r, sp_read_call, "dist: single-process read"),
+                   "rmw_batch": equal_to_plain((sp_o, sp_new), sp_rmw_call,
+                                               "dist: single-process batched RMW")}
+    want_read = server.read_batch(state, d_read_b)
+    u_outs, u_state = server.rmw_batch(state, d_prep_b, d_coeff_b, d_w_b)
+    sp_new = mesh_mod.unshard_rows(sp_new)
+    if not torch.equal(sp_new, u_state.data):
+        fail("dist: the single-process batched_rmw_fn's new RAM differs from rmw_batch's")
+    b_loc = DIST_BATCH // DIST_PROCS
+    dist_launches = {p_: dict.fromkeys(ntt_cuda.LAUNCHES, 0) for p_ in ("read", "rmw_batch")}
+    want_per_worker = {
+        "read": dict(fused_external_fold_batched=2 * DIST_ROWS, ntt_fwd=DIST_ROWS,
+                     fused_pack_merge=(PAR.num_rows.bit_length() - 1) * DIST_ROWS,
+                     fused_trace=DIST_ROWS, ring_all_gather=1),
+        "rmw_batch": dict(fused_external_fold_batched=4 * DIST_ROWS,
+                          fused_external_fold=4 * DIST_ROWS, ntt_fwd=3 * DIST_ROWS,
+                          fused_pack_merge=(PAR.num_rows.bit_length() - 1) * DIST_ROWS,
+                          fused_trace=DIST_ROWS,
+                          fused_split=(PAR.num_rows.bit_length() - 1) * DIST_ROWS,
+                          ring_all_gather=1)}
+    for r, wk in enumerate(workers):
+        if wk["mesh"] != {"dp": DIST_PROCS, "rows": DIST_ROWS} or wk["backend"] != "gloo":
+            fail(f"dist: worker {r} ran mesh {wk['mesh']} over {wk['backend']}")
+        if wk["foreign_modules"]:
+            fail(f"dist: worker {r} imported {wk['foreign_modules']}")
+        if not wk["int32_sum_wraps"]:
+            fail("dist: the cross-process int32 sum does not wrap")
+        mine = slice(r * b_loc, (r + 1) * b_loc)
+        for k in range(DIST_ROWS):
+            if not (torch.equal(wk["read"][0][k].to(dev), want_read[mine])
+                    and torch.equal(wk["read"][0][k].to(dev), sp_r[r][k])):
+                fail(f"dist: worker {r}'s read on rows shard {k} differs from "
+                     "read_batch or the single-process mesh's")
+            if not (torch.equal(wk["rmw_outs"][0][k].to(dev), sp_o[r][k])
+                    and torch.equal(wk["rmw_outs"][0][k].to(dev), u_outs[mine])):
+                fail(f"dist: worker {r}'s RMW read-outs on rows shard {k} differ from "
+                     "the single-process mesh's or rmw_batch's")
+        if not torch.equal(mesh_mod.unshard_rows(wk["new"]).to(dev), sp_new):
+            fail(f"dist: worker {r}'s new RAM differs from the single-process mesh's")
+        for p_ in ("read", "rmw_batch"):
+            got = {k_: wk["launches"][p_].get(k_, 0) for k_ in ntt_cuda.LAUNCHES}
+            expect_launches(f"dist {p_} in worker {r}", got, **want_per_worker[p_])
+            for k_, v_ in got.items():
+                dist_launches[p_][k_] += v_
+            unchecked = set(wk["shapes"][p_]) - set(sp_seen)
+            if unchecked:
+                fail(f"dist {p_}: worker {r} launched at {sorted(unchecked)}, which no "
+                     "call held against the plain versions did")
+    worst_d = -1e9
+    d_plain = data.copy()
+    for k, idx in enumerate(d_read):
+        worst_d = max(worst_d, decode(want_read[k], idx, "dist read"))
+    for k, idx in enumerate(d_rmw):
+        worst_d = max(worst_d, decode(u_outs[k], idx, "dist RMW read-out"))
+        d_plain[idx * W: (idx + 1) * W] = d_words[k]
+    back = server.read_batch(u_state, d_prep_b)
+    for k, idx in enumerate(d_rmw):
+        worst_d = max(worst_d, decode(back[k], idx, "dist RMW read-back", plain=d_plain))
+    del d_shards, sp_r, sp_o, sp_new, u_outs, u_state, back, want_read
+    d_ms = {p_: [max(wk["ms"][p_][i] for wk in workers) for i in range(DIST_REPS)]
+            for p_ in ("read", "rmw_batch", "all_reduce")}
+    emit({"phase": "dist", "ok": True, "preset": "PARAMS_2_18_TURBO_READOPT",
+          "processes": DIST_PROCS, "backend": "gloo", "devices": "one card, shared",
+          "global_mesh": {"dp": DIST_PROCS, "rows": DIST_ROWS},
+          "mesh_a_process": {"dp": 1, "rows": DIST_ROWS},
+          "read_addresses": d_read, "rmw_addresses": d_rmw,
+          "equal_to": "read: read_batch and the single-process batched_read_fn on "
+                      "every rows shard; RMW: read-outs on every rows shard and every "
+                      "process's whole new RAM == the single-process batched_rmw_fn "
+                      "(dp 2 x rows 2) == rmw_batch",
+          "int32_sum_wraps": True,
+          "dist_read_ms": statistics.median(d_ms["read"]),
+          "dist_rmw_batch_ms": statistics.median(d_ms["rmw_batch"]),
+          "dist_all_reduce_ms": statistics.median(d_ms["all_reduce"]),
+          "dist_ms_all_max_over_processes": d_ms,
+          "dist_ms_by_process": [wk["ms"] for wk in workers],
+          "single_process_read_ms": statistics.median(sp_ms["read"]),
+          "single_process_rmw_batch_ms": statistics.median(sp_ms["rmw_batch"]),
+          "single_process_ms_all": sp_ms, "plain_single_process_ms": plain_sp_ms,
+          "workers_seconds": round(dist_s, 2),
+          "parent_device_bytes_reserved_beside_the_workers": parent_bytes,
+          "worst_noise_log2": worst_d, "noise_bound_log2": -(PAR.k_pt + 1),
+          "launches_per_worker": {p_: [wk["launches"][p_] for wk in workers]
+                                  for p_ in ("read", "rmw_batch")},
+          "shapes_launched": {p_: sorted(set().union(*(wk["shapes"][p_] for wk in workers)))
+                              for p_ in ("read", "rmw_batch")}})
+    del workers
+
     # ---- sharded_rmw: 2 chained sharded_rmw_fn cycles, then one ------------
     # sharded_rpw_fn + sharded_write_fn pair, each against the unsharded cycle
     rmw_fn = mesh_mod.sharded_rmw_fn(BPAR, bmesh)
@@ -2301,7 +2470,8 @@ def main():
                statistics.median(srmw_ms))
 
     # ---- the kernels' line --------------------------------------------------
-    # launches over the fifteen paths, each counted from 0 just before it
+    # launches over the seventeen paths (the dist paths' in the workers),
+    # each counted from 0 just before it
     # was driven to just after (comparisons and read-backs are outside; the
     # per-level batched RMW: its four timed calls).  Kernel 12 lies on no
     # path of either package: its checks above are all it gets.
@@ -2313,7 +2483,8 @@ def main():
                "vm_cycle": vm_launches, "read_2_24": read24_launches,
                "sharded_read": shread_launches, "sharded_batch": shbatch_launches,
                "sharded_rmw": srmw_launches, "load": load_launches,
-               "load_prepared": prep_launches}
+               "load_prepared": prep_launches, "dist_read": dist_launches["read"],
+               "dist_rmw_batch": dist_launches["rmw_batch"]}
     on_no_path = ("fused_external",)
     total_launches = {k: sum(p_[k] for p_ in by_path.values()) for k in path_launches}
     for k, v in total_launches.items():

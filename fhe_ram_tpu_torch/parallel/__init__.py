@@ -1,2 +1,2 @@
 """parallel layer of the PyTorch/CUDA port: the row-sharded mesh and its
-collectives."""
+collectives, and the multi-process mesh (dp over processes)."""

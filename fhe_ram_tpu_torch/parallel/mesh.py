@@ -501,13 +501,24 @@ def batched_rmw_fn(params: Params, mesh: Mesh, collective: str = "ring"):
     @torch.no_grad()
     def fn(data, coords_prep_b, coords_coeff_b, w_b, keys):
         data = _check_data(mesh, data)
-        if not len(coords_prep_b) == len(coords_coeff_b) == len(w_b) == mesh.dp:
-            raise ValueError(f"address and word slices for dp = {mesh.dp}")
-        outs, total = [], None
-        for cp, cc, w in zip(coords_prep_b, coords_coeff_b, w_b):
-            o, upds = _rmw_batch_body(params, ctx, data, cp, cc, w, keys,
-                                      collective)
-            outs.append(o)
-            total = upds if total is None else [a + b for a, b in zip(total, upds)]
+        outs, total = _rmw_batch_replicas(params, ctx, mesh, data, coords_prep_b,
+                                          coords_coeff_b, w_b, keys, collective)
         return outs, [limb_ops.normalize(d + u) for d, u in zip(data, total)]
     return fn
+
+
+def _rmw_batch_replicas(params: Params, ctx, mesh: Mesh, data, coords_prep_b,
+                        coords_coeff_b, w_b, keys, collective: str):
+    """batched_rmw_fn before its normalize: (the read-outs, a list over dp
+    of lists over rows shards; the dp replicas' delta sums added, a list over
+    rows shards of int32[W, R_loc, C, L, N], wrapping as int32 does).
+    parallel/dist.py adds the other processes' sums to these before the
+    normalize."""
+    if not len(coords_prep_b) == len(coords_coeff_b) == len(w_b) == mesh.dp:
+        raise ValueError(f"address and word slices for dp = {mesh.dp}")
+    outs, total = [], None
+    for cp, cc, w in zip(coords_prep_b, coords_coeff_b, w_b):
+        o, upds = _rmw_batch_body(params, ctx, data, cp, cc, w, keys, collective)
+        outs.append(o)
+        total = upds if total is None else [a + b for a, b in zip(total, upds)]
+    return outs, total

@@ -30,8 +30,11 @@ def test_port_has_the_expected_layout(monkeypatch):
                  "vm/fheuint.py", "vm/circuits.py", "vm/arithmetic.py",
                  "vm/store.py", "vm/conversion.py", "vm/cycle.py",
                  "vm/bitdecomp.py", "examples/vm_load_demo.py",
-                 "parallel/collective.py", "parallel/mesh.py"):
+                 "parallel/collective.py", "parallel/mesh.py", "parallel/dist.py",
+                 "ops/ntt4.py", "utils/native.py", "examples/multihost_dryrun.py"):
         assert want in names, want
+    # the golden model's source, the port's own copy
+    assert (PORT / "native" / "fheram_native.cpp").is_file()
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "fhe_core.cuh", "ntt.cu", "fold.cu", "external.cu", "trace.cu",
         "pack_merge.cu", "split.cu", "split_tree.cu", "pack_tree.cu",
@@ -87,7 +90,14 @@ def test_importing_the_port_loads_no_jax():
         "from fhe_ram_tpu_torch.vm import fheuint, circuits, arithmetic, store, conversion, cycle\n"
         "from fhe_ram_tpu_torch.vm import bitdecomp\n"
         "assert callable(bitdecomp.load_word) and callable(bitdecomp.bootstrap_key_fast)\n"
-        "from fhe_ram_tpu_torch.parallel import collective, mesh\n"
+        "from fhe_ram_tpu_torch.parallel import collective, mesh, dist\n"
+        "from fhe_ram_tpu_torch.ops import ntt4\n"
+        "from fhe_ram_tpu_torch.utils import native\n"
+        "assert callable(dist.batched_rmw_fn) and callable(dist.init_distributed)\n"
+        "assert callable(ntt4.ntt4_fwd) and callable(native.garner3_digits)\n"
+        # the workers' entry module (python -m ...examples.multihost_dryrun)
+        "from fhe_ram_tpu_torch.examples import multihost_dryrun\n"
+        "assert callable(multihost_dryrun.worker) and callable(multihost_dryrun.run_workers)\n"
         "assert callable(collective.ring_all_gather) and callable(collective.exchange)\n"
         "assert callable(mesh.sharded_read_fn) and callable(mesh.batched_rmw_fn)\n"
         "assert callable(cycle.vm_cycle) and callable(ntt_cuda.fused_dp_chain)\n"
