@@ -4,7 +4,9 @@ read-modify-write cycles, batched reads, batched read-modify-writes,
 encrypted VM instruction cycles, the VM LOAD (a word read from the RAM
 decomposed into its encrypted bits), the 2^24 RAM unsharded and
 row-sharded over a mesh whose shards all lie on the card, and the batched
-read and read-modify-write over two processes that share the card.
+read and read-modify-write over two processes that share the card; the
+RAM server, the VM and the mesh also on their composed routes (a two-pass
+context, the counterpart of the JAX package's FHERAM_MXU=0).
 
     python3 chip_smoke.py [--seed N] [--reads N] [--profile] [--kernels-only]
                           [--verbose-build]
@@ -69,6 +71,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
   composed_batch read_batch of 16 (with and without the cache) and rmw_batch
                  of 4, bit-equal to the fused server's, decoded
   composed_vs_plain  a composed read and cycle through the plain versions
+  composed_chained_batch  the port's own client at PARAMS_README_2_18 (4 + 2
+                 chained CMux digits of 3 bits; keygen, RAM, 8 addresses from
+                 --seed): FheRam(composed=True).read_batch of 8, whose level
+                 0 chains every address's digits from the RAM's
+                 coefficients, bit-equal to the fused server's (which chains
+                 from the shared spectra) and to the same call through the
+                 plain versions; decoded; launches a call as counted from
+                 the code
   vm_cycle       the port's own client at PARAMS_2_18_READOPT (keygen, RAM,
                  operands from --seed), then 6 chained vm_cycle calls, each
                  selecting another ALU op by its encrypted id and storing
@@ -79,6 +89,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  checked ones; the four parts timed apart
   vm_cycle_vs_plain  the last cycle again through the plain versions on the
                  card: rd, fetched and the whole new RAM bit-equal
+  composed_vm_cycle  5 chained vm_cycle calls on a two-pass context (the
+                 composed routes: loops of keyed CMuxes, one fold a trace
+                 step, merge and split level) at fresh pointers on the
+                 vm_cycle phase's RAM: fetched and the new RAM bit-equal to
+                 a fused cycle on the same inputs, rd decodes (full-gadget
+                 select_rd); only kernels 1, 2 and 5, at the launches a
+                 cycle counted from the code; composed_vm_cycle_ms beside
+                 vm_cycle_ms
+  composed_vm_vs_plain  the last composed cycle through the plain versions
   load           the port's own client makes the bootstrapping key of the
                  read phase's secret (8192 GGSWs, gadget of 5 limbs, flat
                  coefficient form: 7.5 GiB); a word FheRam.read fetches from
@@ -128,7 +147,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  every new data shard bit-equal
   sharded_vs_plain  one sharded read again through the plain versions on the
                  card, collectives included: every shard's output bit-equal
-  kernels        one line for all kernels: launches over the seventeen paths,
+  composed_sharded  every mesh factory with composed=True at the 2^24 cell:
+                 the read at rows 4 (ring, exchange), one sharded_rmw_fn
+                 cycle, an rpw + write pair, batched_read_fn of 8 (dp 1 x
+                 rows 4) without and with the spectral cache, batched_rmw_fn
+                 of 4 (dp 2 x rows 2): every output bit-equal to the fused
+                 factory's; only kernels 1, 2, 5, 13, 14 at the counts
+                 written in the code; times beside the fused calls'
+  kernels        one line for all kernels: launches over the twenty paths,
                  error, time, the plain version's time, the card's bound, and
                  for the collectives the library call's time
 
@@ -170,7 +196,16 @@ BIG_BATCH = 64   # addresses of one more, larger batched read
 NB_RMW = 16      # addresses of the batched read-modify-write
 
 
+_last_phase_end = [time.time()]
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gets the seconds since the line
+    before it (the phase's own wall time, its set-up included)."""
+    if "phase" in obj:
+        now = time.time()
+        obj = {**obj, "phase_seconds": round(now - _last_phase_end[0], 2)}
+        _last_phase_end[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -243,6 +278,36 @@ VM_CYCLE_LAUNCHES = dict(fused_dp_chain=1, fused_bitwise=1, fused_blind_rotate=4
                          ntt_fwd=4)
 
 
+# the composed VM cycles (a two-pass context): the bitwise group, the carry
+# chain, shifts by the immediate and by a register, every store width
+COMPOSED_VM_PLAN = (("xor", "sw", 0), ("add", "sb", 3), ("srai", "sh", 2),
+                    ("sltu", "none", 1), ("sll", "sw", 0))
+
+
+def composed_vm_launches(par, bits, n_ops):
+    """Launches of one composed vm_cycle (RVI32_OPS: both source groups in
+    the bitwise and shift groups), counted from the code: keyed and batched
+    folds -- the carry DP two a bit, the bitwise group a level a source group
+    and one, word_from_bits and a barrel level a shift bit, select_rd one a
+    op-id bit, select_store 4, the pointer one a bit; folds -- a trace step
+    each (the shift extraction, select_rd's partial trace, select_store's
+    two extractions and its clean-up, the byte repack), rpw (2 products, a
+    merge a level, a trace) and write (a trace, 2 x 2 inversions, a split a
+    level and the extraction's trace tail -- none where the rows' slots fill
+    the ring, as at 2^18 --, 2 products); transforms -- the converted
+    address's coordinates and the write's inverted ones."""
+    lg, keep = par.log_n, bits.bit_length() - 1
+    levels = par.num_rows.bit_length() - 1
+    tail = 0 if par.num_rows << levels <= par.n else lg - levels
+    n2 = len(par.base2d().rows)
+    return dict(
+        fused_external_fold_batched=(2 * bits + 3 + 1 + keep + (n_ops - 1).bit_length()
+                                     + 4 + par.max_addr.bit_length() - 1),
+        fused_external_fold=(lg + (lg - keep) + 2 * lg + (lg - keep) + (2 + levels + lg)
+                             + lg + (lg + 2 * n2 + levels + tail + 2)),
+        ntt_fwd=2 * n2)
+
+
 # -- the row-sharded paths at PARAMS_2_24_READOPT (kernels 13, 14) ----------
 
 BIG_READS = 4      # reads at 2^24, unsharded and on each mesh
@@ -257,6 +322,10 @@ DIST_ROWS = 2       # rows shards a process (dp 1 a process: global dp 2 x rows 
 DIST_BATCH = 8      # addresses of the dist batched read, and of the batched RMW
 DIST_REPS = 3       # timed calls of each path in every worker
 DIST_TIMEOUT_S = 300
+
+# -- the composed chained-digit batched read at PARAMS_README_2_18 ------------
+
+CHAINED_BATCH = 8   # addresses of the batched read (4 + 2 CMux digits of 3 bits)
 # (shards, pack roots a chunk[, stride]) of every collective launch on those
 # paths, each held against its plain version: the single read's root at rows
 # 4 (driven) and 2 and 8, a batch of 8 roots at rows 4, the batched RMW's 2
@@ -1402,8 +1471,10 @@ def main():
     composed_ok = ("ntt_fwd", "ntt_inv", "fused_external_fold",
                    "fused_external_fold_batched")
 
-    def only_composed(what, counts):
-        off = {k: v for k, v in counts.items() if v and k not in composed_ok}
+    def only_composed(what, counts, also=()):
+        """Every launch of a composed window one of composed_ok (or also)."""
+        off = {k: v for k, v in counts.items()
+               if v and k not in composed_ok + tuple(also)}
         if off:
             fail(f"{what}: launches off the composed routes: {off}")
 
@@ -1557,6 +1628,85 @@ def main():
           "plain_read_ms": p_read_ms, "plain_rpw_ms": p_rpw_ms,
           "plain_write_ms": p_write_ms})
     del k_out, p_out, p_rpw, p_new, c_coeff
+
+    # ---- composed_chained_batch: the composed route's chained digits ---------
+    # ram/address.py coordinate_product_batched's composed branch: at
+    # PARAMS_README_2_18 (the README's 2^18 parameterization: 4 + 2 CMux
+    # digits of 3 bits, no truncation) every address's digit chain starts
+    # from the RAM's coefficients, the digit rows copied once an address
+    # (~200 MB at 8), where the fused route chains on the shared spectra.
+    # The port's own client from --seed (keygen, 2^18 x 4 random bytes, the
+    # addresses); FheRam(composed=True).read_batch of CHAINED_BATCH against
+    # the fused server's.  Launches a call, counted from the code: 2 batched
+    # folds (level 0, level 1), a merge a level and a trace step one fold
+    # each, no transform.
+    from fhe_ram_tpu_torch.params import PARAMS_README_2_18 as CPAR
+
+    t_phase = time.time()
+    rctx = get_ntt_context(CPAR.n, CPAR.primes)
+    rsrc = rng.Source(args.seed + 40)
+    rsk = rng.ternary_secret(rsrc.split(), CPAR.rank, CPAR.n, CPAR.xs_density,
+                             device=dev)
+    rs_ntt = glwe.secret_prepare(rctx, rsk)
+    rkeys = keys_mod.prepare(CPAR, keys_mod.keygen(CPAR, rsk, rsrc))
+    rdata = np.random.default_rng(args.seed + 41).integers(
+        0, 256, size=CPAR.max_addr * CPAR.word_size).astype(np.uint8)
+    rserver = ram_mod.FheRam(CPAR, rkeys, device=dev)
+    rcserver = ram_mod.FheRam(CPAR, rkeys, device=dev, composed=True)
+    rstate = rserver.init_state(ram_mod.encrypt_ram(CPAR, rctx, rs_ntt, rdata, rsrc))
+    r_idx = [int(a) for a in np.random.default_rng(args.seed + 42).choice(
+        CPAR.max_addr, size=CHAINED_BATCH, replace=False)]
+    r_b = stack_addresses([address_mod.prepare(rctx, address_mod.encrypt(
+        CPAR, rctx, rs_ntt, i, rsrc)) for i in r_idx])
+    torch.cuda.synchronize()
+    r_setup_s = time.time() - t_phase
+    r_digits = [c.shape[2] for c in r_b]
+    if r_digits[0] < 2:
+        fail(f"composed_chained_batch: {r_digits} digits, no chain at level 0")
+    r_fused, r_fused_ms = timed(lambda: rserver.read_batch(rstate, r_b))
+    ntt_cuda.reset_launches()
+    r_ms = []
+    for _ in range(3):
+        r_got, ms, l_rb = launches_of(lambda: rcserver.read_batch(rstate, r_b))
+        expect_launches("composed chained read_batch", l_rb,
+                        fused_external_fold_batched=2,
+                        fused_external_fold=CPAR.num_rows.bit_length() - 1 + CPAR.log_n)
+        r_ms.append(ms)
+    chained_launches = dict(ntt_cuda.LAUNCHES)
+    only_composed("composed_chained_batch", chained_launches)
+    r_fused_all = [r_fused_ms] + [timed(lambda: rserver.read_batch(rstate, r_b))[1]
+                                  for _ in range(2)]
+    if not torch.equal(r_got, r_fused):
+        fail("composed chained read_batch: differs from the fused server's")
+    # the chained digits through the plain versions: both kernel modes (the
+    # chain from coefficients here, from the shared spectra in the fused
+    # server's call) held against the plain fold at this phase's shapes
+    with ntt_cuda.plain_versions():
+        r_plain, r_plain_ms = timed(lambda: rcserver.read_batch(rstate, r_b))
+    if not torch.equal(r_plain, r_got):
+        fail("composed chained read_batch: kernels and plain versions disagree")
+    del r_plain
+    worst_rb = -1e9
+    r_ph = glwe.phase(CPAR, rctx, rs_ntt, r_got)
+    for k, idx in enumerate(r_idx):
+        for i in range(CPAR.word_size):
+            want = glwe.cast_u8_signed(int(rdata[idx * CPAR.word_size + i]), CPAR.k_pt)
+            val, noise = glwe.decode_coeff0(CPAR, r_ph[k, i], want)
+            if int(val) != want or not noise < -(CPAR.k_pt + 1):
+                fail(f"composed chained read_batch at {idx}, byte {i}: decoded "
+                     f"{int(val)} (noise 2^{float(noise):.2f}), stored {want}")
+            worst_rb = max(worst_rb, float(noise))
+    emit({"phase": "composed_chained_batch", "ok": True, "preset": "PARAMS_README_2_18",
+          "batch": CHAINED_BATCH, "addresses": r_idx, "digits": r_digits,
+          "equal_to_fused_server": True, "equal_to_plain_versions": True,
+          "plain_composed_read_batch_ms": r_plain_ms,
+          "composed_read_batch_ms": statistics.median(r_ms),
+          "composed_read_batch_ms_all": r_ms,
+          "fused_read_batch_ms": statistics.median(r_fused_all),
+          "fused_read_batch_ms_all": r_fused_all,
+          "worst_noise_log2": worst_rb, "noise_bound_log2": -(CPAR.k_pt + 1),
+          "launches_per_call": l_rb, "setup_seconds": round(r_setup_s, 2)})
+    del rserver, rcserver, rstate, rkeys, r_b, r_got, r_fused, r_ph
 
     # ---- the VM instruction cycle at PARAMS_2_18_READOPT -----------------------
     from fhe_ram_tpu_torch.vm import arithmetic, conversion, fheuint, store
@@ -1735,6 +1885,82 @@ def main():
                       f"int32{list(vstate.shape)}",
           "plain_vm_cycle_ms": plain_vm_ms})
     del p_rd, p_fetched, p_state, vm_inputs, final
+
+    # ---- composed_vm_cycle: the VM's composed routes (a two-pass context) ----
+    # The JAX package's FHERAM_MXU=0 branches: the carry DP and the bitwise
+    # group as loops of keyed CMuxes (kernel 5), the blind rotations one CMux
+    # a bit, every trace step, merge and split level one fold (kernel 2) and
+    # torch glue.  COMPOSED_VM_PLAN's cycles chain on the RAM the fused cycles
+    # left, at pointers no cycle used, on the vm_cycle phase's client and
+    # keys; after the counted window each cycle runs again fused on the same
+    # inputs: fetched and the new RAM bit-equal.  rd decodes: select_rd
+    # rotates with the full gadget here (the reference's composed branch),
+    # where the fused route truncates, so rd is not the fused integers.
+    vtctx = get_ntt_context(VPAR.n, VPAR.primes, "two_pass")
+    c_ptrs = [int(a) for a in np.random.default_rng(args.seed + 11).choice(
+        VPAR.max_addr, size=len(COMPOSED_VM_PLAN) + len(vpicks), replace=False)
+        if int(a) not in vpicks][:len(COMPOSED_VM_PLAN)]
+    c_plan = [(op, sop, off, c_ptrs[k])
+              for k, (op, sop, off) in enumerate(COMPOSED_VM_PLAN)]
+    c_expected = [operands(op, sop, off, ptr, written) for op, sop, off, ptr in c_plan]
+    c_want_launches = composed_vm_launches(VPAR, vbits, len(ops))
+    ntt_cuda.reset_launches()
+    cstate, c_vm_ms, c_runs = vstate, [], []
+    for (op, _, _, ptr), (enc, _, _) in zip(c_plan, c_expected):
+        (rd, fetched, new_c), ms, l_c = launches_of(
+            lambda: vm_cycle(VPAR, vtctx, vkeys, data=cstate, **enc))
+        expect_launches(f"composed vm_cycle ({op}) at {ptr}", l_c, **c_want_launches)
+        c_runs.append((cstate, enc, rd, fetched, new_c))
+        c_vm_ms.append(ms)
+        cstate = new_c
+    c_vm_launches = dict(ntt_cuda.LAUNCHES)
+    only_composed("composed_vm_cycle", c_vm_launches)
+    worst_crd, worst_cram, worst_frd, rd_equal = -1e9, -1e9, -1e9, []
+    for (op, sop, off, ptr), (_, rd_want, _), (st0, enc, rd, fetched, new_c) in zip(
+            c_plan, c_expected, c_runs):
+        f_rd, f_fetched, f_new = vm_cycle(VPAR, vctx, vkeys, data=st0, **enc)
+        if not (torch.equal(fetched, f_fetched) and torch.equal(new_c, f_new)):
+            fail(f"composed vm_cycle ({op}) at {ptr}: fetched or the new RAM differs "
+                 "from the fused cycle's")
+        got = fheuint.decrypt_word(VPAR, vctx, vs_ntt, rd, vbits)
+        if got != rd_want:
+            fail(f"composed vm_cycle ({op}): rd decodes to {got:#x}, "
+                 f"expected {rd_want:#x}")
+        worst_crd = max(worst_crd, fheuint.word_noise_log2(VPAR, vctx, vs_ntt, rd,
+                                                           rd_want, vbits))
+        worst_frd = max(worst_frd, fheuint.word_noise_log2(VPAR, vctx, vs_ntt, f_rd,
+                                                           rd_want, vbits))
+        worst_cram = max(worst_cram, vdecode(fetched, ptr, "composed vm_cycle fetch",
+                                             written))
+        rd_equal.append(bool(torch.equal(rd, f_rd)))
+        del f_rd, f_fetched, f_new
+    if not max(worst_crd, worst_cram) < -(VPAR.k_pt + 1):
+        fail(f"composed vm_cycle: worst noise 2^{max(worst_crd, worst_cram):.2f}")
+    emit({"phase": "composed_vm_cycle", "ok": True, "preset": "PARAMS_2_18_READOPT",
+          "cycles": [{"op": op, "store": sop, "offset": off, "pointer": ptr}
+                     for op, sop, off, ptr in c_plan],
+          "equal_to_fused_cycle": "fetched and all of each new RAM",
+          "rd_bit_equal_to_fused": rd_equal,
+          "composed_vm_cycle_ms": statistics.median(c_vm_ms),
+          "composed_vm_cycle_ms_all": c_vm_ms, "vm_cycle_ms": statistics.median(vm_ms),
+          "worst_rd_noise_log2": worst_crd, "fused_worst_rd_noise_log2": worst_frd,
+          "worst_fetch_noise_log2": worst_cram, "noise_bound_log2": -(VPAR.k_pt + 1),
+          "launches_per_cycle": l_c})
+
+    # ---- composed_vm_vs_plain: the last composed cycle through the plain ------
+    # versions on the card: rd, fetched and the whole new RAM bit-equal
+    c_vm_last = c_runs[-1][:2]
+    st0, enc, rd, fetched, new_c = c_runs[-1]
+    with ntt_cuda.plain_versions():
+        (p_rd, p_fetched, p_state), plain_cvm_ms = timed(
+            lambda: vm_cycle(VPAR, vtctx, vkeys, data=st0, **enc))
+    if not (torch.equal(p_rd, rd) and torch.equal(p_fetched, fetched)
+            and torch.equal(p_state, new_c)):
+        fail("composed vm_cycle: kernels and plain versions disagree")
+    emit({"phase": "composed_vm_vs_plain", "ok": True, "pointer": c_plan[-1][3],
+          "compared": "rd, fetched and all of the new RAM",
+          "plain_composed_vm_cycle_ms": plain_cvm_ms})
+    del p_rd, p_fetched, p_state, c_runs, rd, fetched, new_c, cstate
 
     # ---- the VM LOAD at PARAMS_2_18_TURBO_READOPT (vm/bitdecomp.py) ---------
     # The port's own client makes the bootstrapping key of the read phase's
@@ -2409,6 +2635,134 @@ def main():
           "compared": f"every shard's read, collectives included ({n4} shards)",
           "plain_sharded_read_ms": plain_sh_ms})
     del k_outs, p_outs
+
+    # ---- composed_sharded: every mesh factory with composed=True -------------
+    # (the two-pass context: each merge, trace step and split level one fold
+    # and torch glue, the batched read's level 0 the RAM's batched product
+    # as on the fused routes) on the 2^24 shards; every output -- read-outs,
+    # roots, every new data shard -- bit-equal to the fused factory's on the same inputs
+    # in this phase (outside the counted windows; two calls of each, in
+    # turns with the fused factory's).  Launches a call, counted
+    # from the code (n4 shards, LV merge levels, TS = log_n trace steps a
+    # full trace, B addresses a replica, cells = dp x rows):
+    #   read:         fold (2 + LV + TS) n4, the collective
+    #   rmw:          fold (8 + 2 LV + TS) n4, ntt_fwd 2 n4, ring 1
+    #   rpw / write:  fold (2 + LV + TS) n4, ring 1 / fold (6 + TS + LV) n4,
+    #                 ntt_fwd 2 n4
+    #   batched read: fold (LV + TS) n4, fold_batched 2 n4, ntt_fwd n4 (none
+    #                 with the cache, whose build is ntt_fwd n4), ring 1
+    #   batched rmw:  fold (4 + TS + 2 LV) a cell, fold_batched 4 a cell,
+    #                 ntt_fwd 3 a cell, ring dp
+    # The 2^24 phases before have filled the allocator's cache: hand it back.
+    torch.cuda.empty_cache()
+    TS = BPAR.log_n
+    csh_launches = dict.fromkeys(ntt_cuda.LAUNCHES, 0)
+    csh_ms, fsh_ms, csh_l = {}, {}, {}
+
+    def same_outputs(a, b, what):
+        """Every tensor of a (nested list) output bit-equal to b's."""
+        if isinstance(a, torch.Tensor):
+            if not torch.equal(a, b):
+                fail(f"composed {what}: differs from the fused factory's output")
+            return
+        if len(a) != len(b):
+            fail(f"composed {what}: {len(a)} parts against {len(b)}")
+        for x, y in zip(a, b):
+            same_outputs(x, y, what)
+
+    def composed_call(what, fused_fn, composed_fn, **want):
+        """fused_fn() and composed_fn() in turns (fused, composed, composed,
+        fused), each composed call counted: the same integers; returns the
+        composed output."""
+        f_out, f_ms = timed(fused_fn)
+        c_out, c_ms, csh_l[what] = counted(composed_fn, csh_launches)
+        same_outputs(c_out, f_out, what)
+        del f_out
+        c_ms2, l2 = counted(composed_fn, csh_launches)[1:]
+        for l_ in (csh_l[what], l2):
+            expect_launches(f"composed {what}", l_, **want)
+        csh_ms[what], fsh_ms[what] = [c_ms, c_ms2], [f_ms, timed(fused_fn)[1]]
+        return c_out
+
+    sidx = big_reads[0]
+    sprep = baddrs[sidx][1]
+    for col, tail in (("ring", {"ring_all_gather": 1}),
+                      ("exchange", {"exchange": n4.bit_length() - 1})):
+        f_fn = mesh_mod.sharded_read_fn(BPAR, bmesh, col)
+        c_fn = mesh_mod.sharded_read_fn(BPAR, bmesh, col, composed=True)
+        outs = composed_call(f"read_{col}", lambda: f_fn(bshards, sprep.coordinates, batk),
+                             lambda: c_fn(bshards, sprep.coordinates, batk),
+                             fused_external_fold=(2 + LV + TS) * n4, **tail)
+        same_on_every_shard(outs, big_out[sidx], f"composed sharded read ({col})")
+    (coeff, prep), w_ct = cyc_in[0]
+    c_rmw = mesh_mod.sharded_rmw_fn(BPAR, bmesh, composed=True)
+    composed_call("rmw", lambda: rmw_fn(bshards, prep.coordinates, coeff.coordinates,
+                                        w_ct, bkeys),
+                  lambda: c_rmw(bshards, prep.coordinates, coeff.coordinates, w_ct, bkeys),
+                  fused_external_fold=(8 + 2 * LV + TS) * n4, ntt_fwd=2 * n4,
+                  ring_all_gather=1)
+    c_rpw = mesh_mod.sharded_rpw_fn(BPAR, bmesh, composed=True)
+    c_write = mesh_mod.sharded_write_fn(BPAR, bmesh, composed=True)
+    _, roots = composed_call("rpw", lambda: rpw_fn(bshards, prep.coordinates, batk),
+                             lambda: c_rpw(bshards, prep.coordinates, batk),
+                             fused_external_fold=(2 + LV + TS) * n4, ring_all_gather=1)
+    composed_call("write",
+                  lambda: write_fn(bshards, roots, w_ct, coeff.coordinates, bkeys),
+                  lambda: c_write(bshards, roots, w_ct, coeff.coordinates, bkeys),
+                  fused_external_fold=(6 + TS + LV) * n4, ntt_fwd=2 * n4)
+    del roots
+    f_br = mesh_mod.batched_read_fn(BPAR, bmesh)
+    c_br = mesh_mod.batched_read_fn(BPAR, bmesh, composed=True)
+    torch.cuda.reset_peak_memory_stats()
+    outs = composed_call(
+        f"batched_read_{BIG_BATCH_READ}",
+        lambda: f_br(bshards, mesh_mod.shard_addr_batch(bmesh, coords8), batk),
+        lambda: c_br(bshards, mesh_mod.shard_addr_batch(bmesh, coords8), batk),
+        fused_external_fold=(LV + TS) * n4, fused_external_fold_batched=2 * n4,
+        ntt_fwd=n4, ring_all_gather=1)
+    same_on_every_shard(outs[0], want8, "composed sharded batched read")
+    del outs
+    cbatch_peak = torch.cuda.max_memory_allocated()
+    # the cache (one digit at this preset: the composed routes take it); one
+    # cache serves both factories, the spectra being the same integers
+    c_cache, _, csh_l["spectral_cache"] = counted(
+        lambda: mesh_mod.sharded_spectral_cache_fn(BPAR, bmesh, composed=True)(bshards),
+        csh_launches)
+    expect_launches("composed spectral cache", csh_l["spectral_cache"], ntt_fwd=n4)
+    f_brc = mesh_mod.batched_read_fn(BPAR, bmesh, with_cache=True)
+    c_brc = mesh_mod.batched_read_fn(BPAR, bmesh, with_cache=True, composed=True)
+    outs = composed_call(
+        f"batched_read_{BIG_BATCH_READ}_cached",
+        lambda: f_brc(bshards, mesh_mod.shard_addr_batch(bmesh, coords8), batk, c_cache),
+        lambda: c_brc(bshards, mesh_mod.shard_addr_batch(bmesh, coords8), batk, c_cache),
+        fused_external_fold=(LV + TS) * n4, fused_external_fold_batched=2 * n4,
+        ring_all_gather=1)
+    same_on_every_shard(outs[0], want8, "composed sharded batched read (cached)")
+    del outs, c_cache
+    shards22 = mesh_mod.shard_data_rows(mesh22, bstate.data)
+    c_rmw22 = mesh_mod.batched_rmw_fn(BPAR, mesh22, composed=True)
+
+    def rmw22_args():
+        return (shards22, mesh_mod.shard_addr_batch(mesh22, rb_prep),
+                mesh_mod.shard_addr_batch(mesh22, rb_coeff),
+                mesh_mod.shard_addr_batch(mesh22, rb_w), bkeys)
+    composed_call(f"batched_rmw_{NB_BIG_RMW}", lambda: rmw22(*rmw22_args()),
+                  lambda: c_rmw22(*rmw22_args()),
+                  fused_external_fold=(4 + TS + 2 * LV) * cells,
+                  fused_external_fold_batched=4 * cells, ntt_fwd=3 * cells,
+                  ring_all_gather=DP_RMW)
+    del shards22
+    only_composed("composed_sharded", csh_launches, also=COLLECTIVES)
+    emit({"phase": "composed_sharded", "ok": True, "preset": "PARAMS_2_24_READOPT",
+          "meshes": {"read, rmw, rpw, write, batched read": bmesh.shape,
+                     "batched rmw": mesh22.shape},
+          "equal_to_fused_factory": "read-outs on every shard, rpw roots, every new "
+                                    "data shard",
+          "composed_ms": {k: statistics.median(v) for k, v in csh_ms.items()},
+          "fused_ms": {k: statistics.median(v) for k, v in fsh_ms.items()},
+          "composed_ms_all": csh_ms, "fused_ms_all": fsh_ms,
+          "launches": csh_l, "peak_device_bytes_batched_read": cbatch_peak})
+
     for name, notes in seen_coll.items():
         checked = {r["shape"] for r in checks.get(name, [])}
         if not notes or not notes <= checked:
@@ -2453,6 +2807,10 @@ def main():
                statistics.median(c_write_ms))
         traced("vm_cycle", lambda: vm_cycle(VPAR, vctx, vkeys, data=st_l, **enc_l),
                statistics.median(vm_ms))
+        c_st, c_enc = c_vm_last
+        traced("composed vm_cycle",
+               lambda: vm_cycle(VPAR, vtctx, vkeys, data=c_st, **c_enc),
+               statistics.median(c_vm_ms))
         bap = baddrs[big_reads[0]][1]
         traced("read at 2^24", lambda: bserver.read(bstate, bap),
                statistics.median(big_ms))
@@ -2470,7 +2828,7 @@ def main():
                statistics.median(srmw_ms))
 
     # ---- the kernels' line --------------------------------------------------
-    # launches over the seventeen paths (the dist paths' in the workers),
+    # launches over the twenty paths (the dist paths' in the workers),
     # each counted from 0 just before it
     # was driven to just after (comparisons and read-backs are outside; the
     # per-level batched RMW: its four timed calls).  Kernel 12 lies on no
@@ -2480,11 +2838,15 @@ def main():
                "rmw_batch_per_level": level_launches,
                "composed_read": c_read_launches, "composed_rmw": c_rmw_launches,
                "composed_batch": c_batch_launches,
-               "vm_cycle": vm_launches, "read_2_24": read24_launches,
+               "composed_chained_batch": chained_launches,
+               "vm_cycle": vm_launches, "composed_vm_cycle": c_vm_launches,
+               "read_2_24": read24_launches,
                "sharded_read": shread_launches, "sharded_batch": shbatch_launches,
                "sharded_rmw": srmw_launches, "load": load_launches,
                "load_prepared": prep_launches, "dist_read": dist_launches["read"],
-               "dist_rmw_batch": dist_launches["rmw_batch"]}
+               "dist_rmw_batch": dist_launches["rmw_batch"],
+               "composed_sharded": csh_launches}
+    COMPOSED_PATHS = tuple(p_ for p_ in by_path if p_.startswith("composed_"))
     on_no_path = ("fused_external",)
     total_launches = {k: sum(p_[k] for p_ in by_path.values()) for k in path_launches}
     for k, v in total_launches.items():
@@ -2516,17 +2878,22 @@ def main():
                # summed over the shapes the first VM cycle launched (every
                # cycle launches the same; the cycle is their only path),
                # else at this shape, the LOAD's launches at the shapes it
-               # launched
+               # launched; the composed paths' launches (rows of every
+               # count, at no one checked shape) are left out
                "launches_x_excess_ms": (
                    total_launches[name] / sum(seen[name].values())
                    * sum(c_ * (r["ms"] - r["bound_ms"]) for r in checks[name]
                          for s_, c_ in seen[name].items() if r["shape"] == s_)
                    if name in VM_KERNELS else
-                   (total_launches[name] - sum(load_seen.get(name, {}).values()))
+                   (total_launches[name] - sum(load_seen.get(name, {}).values())
+                    - sum(c_[name] for p_, c_ in by_path.items()
+                          if p_ in COMPOSED_PATHS))
                    * (rec["ms"] - b_ms)
                    + sum(c_ * (r["ms"] - r["bound_ms"]) for r in checks[name]
                          for s_, c_ in load_seen.get(name, {}).items()
                          if r["shape"] == s_))}
+        if name not in VM_KERNELS:
+            out["launches_x_excess_leaves_out"] = list(COMPOSED_PATHS)
         for k_ in ("per_level_ms", "predecessor_ms"):
             if k_ in rec:
                 out[k_] = rec[k_]

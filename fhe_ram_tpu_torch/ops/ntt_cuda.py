@@ -27,7 +27,8 @@ and 5) and external.cu (kernel 12, on no path) serve the radix-2 and the
 two-pass contexts (ops/ntt.py) with the same integers and count under
 their own names whatever the context's body.
 The fused kernels 3, 4 and 6-11 serve the radix-2 context only: a two-pass
-context routes around them (ops.ntt.fused_path_active).  Helpers that build the trace
+context routes around them (ops.ntt.fused_path_active), and their wrappers
+refuse it, the plain versions' route too.  Helpers that build the trace
 step, the split level and the pack merge from one fold (trace_step,
 split_level, pack_merge_level) serve the composed routes with the fold
 kernel and the plain versions with its plain version.
@@ -386,6 +387,17 @@ def _use_kernel(ctx: NTTContext, t) -> bool:
     if ctx.n != 4096:
         raise ValueError(f"the CUDA kernels take n = 4096, got n = {ctx.n}")
     return True
+
+
+def _require_radix2(ctx: NTTContext, name: str):
+    """Kernels 3, 4 and 6-11 have the radix-2 body only (the JAX package
+    asserts the MXU family in each): a two-pass context, whose routes are
+    the composed ones, is refused on both routes, the kernel's and the
+    plain version's, so that a composed route that strays onto one fails
+    on the CPU too."""
+    if ctx.body != "radix2":
+        raise ValueError(f"{name} serves the radix-2 context only, got the "
+                         f"{ctx.body} body: its composed route is one fold a step")
 
 
 def _fold_limits(T: int, M: int, c2: int, out_limbs: int, n: int):
@@ -857,6 +869,7 @@ def fused_trace(ctx: NTTContext, ct, keys_stacked, gal_els):
     prepared automorphism keys (T = rank*Td, Td <= L the decomposed digits;
     M = C2*Lk); gal_els: the S galois elements.  Returns int32[B, C2, L, N]
     == the chain ct <- normalize(ct + KS(sigma_g(ct)))."""
+    _require_radix2(ctx, "fused_trace")
     B, C2, L, n = ct.shape
     S, _, T, M, n3 = keys_stacked.shape
     rank = C2 - 1
@@ -907,6 +920,7 @@ def fused_pack_merge(ctx: NTTContext, A, B, t_rot: int, g: int, key_ntt):
     A, B: int32[nb, C2, L, N] (limbs up to 2^17 in magnitude: the first
     level takes the pre-shifted, unnormalized rows); key_ntt: int32[P, T,
     M, N] (T = rank*Td, M = C2*Lk).  Returns int32[nb, C2, L, N]."""
+    _require_radix2(ctx, "fused_pack_merge")
     nb, C2, L, n = A.shape
     _, T, M, n3 = key_ntt.shape
     rank = C2 - 1
@@ -954,6 +968,7 @@ def fused_split(ctx: NTTContext, ct, t_rot: int, g: int, key_ntt):
     ct: int32[nb, C2, L, N] normalized; key_ntt: int32[P, T, M, N] with
     T = rank*L (the full gadget) and M = C2*Lk.  Returns (child0, child1),
     each int32[nb, C2, L, N]."""
+    _require_radix2(ctx, "fused_split")
     nb, C2, L, n = ct.shape
     _, T, M, n3 = key_ntt.shape
     rank = C2 - 1
@@ -1064,6 +1079,7 @@ def fused_split_tree(ctx: NTTContext, ct, gal_els, keys_stacked):
     gadget), M = C2*Lk.  Returns int32[nb, 2^S, C2, L, N]: node j of root
     b is the leaf for slot j, the same integers as S `fused_split`
     launches whose children are concatenated [child0s | child1s]."""
+    _require_radix2(ctx, "fused_split_tree")
     nb, C2, L, n = ct.shape
     S, P, T, M, n3 = keys_stacked.shape
     rank = C2 - 1
@@ -1145,6 +1161,7 @@ def fused_pack_tree(ctx: NTTContext, cts, keys_stacked):
     X^(2^(levels-1-s))), T = rank*L (the full gadget), Mk = C2*Lk.
     Returns int32[nb, C2, L, N], the same integers as log2(M)
     `fused_pack_merge` launches."""
+    _require_radix2(ctx, "fused_pack_tree")
     M, nb, C2, L, n = cts.shape
     levels, P, T, Mk, n3 = keys_stacked.shape
     rank = C2 - 1
@@ -1247,6 +1264,7 @@ def fused_blind_rotate(ctx: NTTContext, rows, keys_stacked, amounts):
     int32[S, P, T, M, N] prepared bit-GGSW key rows (T = C2*Td, Td <= L the
     decomposed top limbs; M = C2*Lk); amounts: S static rotation exponents
     (any sign; X^N = -1).  Returns int32[B, C2, L, N]."""
+    _require_radix2(ctx, "fused_blind_rotate")
     B, C2, L, n = rows.shape
     Td, T, M = _chain_keys(keys_stacked, 1, C2, L, n, ctx)
     S = keys_stacked.shape[0]
@@ -1355,6 +1373,7 @@ def fused_dp_chain(ctx: NTTContext, F0, keys_stacked, deltas, op_tables, groups)
     op_tables[g] = (emit, subtab, flip) of op g; groups: per source group
       the tuple of its op indices.
     Returns int32[G, 2, C2, L, N]: the state after the last step."""
+    _require_radix2(ctx, "fused_dp_chain")
     G, two, C2, L, n = F0.shape
     bits = keys_stacked.shape[0]
     of = _op_groups(groups, G)
@@ -1464,6 +1483,7 @@ def fused_bitwise(ctx: NTTContext, leaves_hi, leaves_lo, keys_stacked, groups):
     groups: per source group the tuple of its op indices.
     Returns int32[W, G, C2, L, N]: out[j, g] = CMux(a_j; CMux(b_j; l11,
     l10), CMux(b_j; l01, l00)) for op g."""
+    _require_radix2(ctx, "fused_bitwise")
     G, two, C2, L, n = leaves_hi.shape
     W = keys_stacked.shape[0]
     of = _op_groups(groups, G)

@@ -35,7 +35,14 @@ every shard, then each shard keeps the subtree of its residue
 and delta adds are row-local.
 
 Nothing is updated in place: the write functions return new data shards
-(the reference donates its input buffer instead)."""
+(the reference donates its input buffer instead).
+
+composed=True, on every factory, is the composed configuration (the
+counterpart of the JAX package's FHERAM_MXU=0, as on ram.FheRam): a
+two-pass context, each pack merge, trace step and split level one fold
+launch and torch glue; the batched read's level-0 product is
+ram.address.coordinate_product_batched on either context, as in
+FheRam.read_batch.  The same integers as composed=False."""
 
 from __future__ import annotations
 
@@ -346,14 +353,18 @@ def _rmw_batch_body(params: Params, ctx, data, coords_prep_b, coords_coeff_b,
 # the entry points: factory functions, as the reference's jitted ones
 # --------------------------------------------------------------------------
 
-def _prepare(params: Params, mesh: Mesh, collective: str | None = None):
+def _prepare(params: Params, mesh: Mesh, collective: str | None = None,
+             composed: bool = False):
+    """The checks, and the context: two-pass for the composed routes."""
     _check_shardable(params, mesh)
     if collective is not None:
         collective_mod.check_collective(collective)
-    return get_ntt_context(params.n, params.primes)
+    return get_ntt_context(params.n, params.primes,
+                           "two_pass" if composed else "radix2")
 
 
-def sharded_read_fn(params: Params, mesh: Mesh, collective: str = "ring"):
+def sharded_read_fn(params: Params, mesh: Mesh, collective: str = "ring",
+                    composed: bool = False):
     """A single read over row-sharded RAM (the 2^24 configuration: strided
     rows over the shards, one pack-root collective, replicated tail).
 
@@ -361,7 +372,7 @@ def sharded_read_fn(params: Params, mesh: Mesh, collective: str = "ring"):
     [W, C, L, N], all equal: data from shard_data_rows, coords an
     AddressPrepared's coordinates, atk the prepared trace keys.  dp > 1
     would compute replicas: they share the rows shards' result."""
-    ctx = _prepare(params, mesh, collective)
+    ctx = _prepare(params, mesh, collective, composed)
 
     @torch.no_grad()
     def fn(data, coords, atk):
@@ -373,7 +384,8 @@ def sharded_read_fn(params: Params, mesh: Mesh, collective: str = "ring"):
     return fn
 
 
-def sharded_rmw_fn(params: Params, mesh: Mesh, collective: str = "ring"):
+def sharded_rmw_fn(params: Params, mesh: Mesh, collective: str = "ring",
+                   composed: bool = False):
     """A read-modify-write over row-sharded RAM: the rpw forward walk, ONE
     full-gadget root trace serving the read-out and the delta (the
     structure of ram.rmw_batch_impl), then the sharded delta walk.
@@ -383,7 +395,7 @@ def sharded_rmw_fn(params: Params, mesh: Mesh, collective: str = "ring"):
     NEW row shards -- the input shards are left as they were): coords_prep
     / coords_coeff an AddressPrepared's / Address's coordinates, w
     int32[W, C, L, N], keys the full EvaluationKeysPrepared."""
-    ctx = _prepare(params, mesh, collective)
+    ctx = _prepare(params, mesh, collective, composed)
 
     @torch.no_grad()
     def fn(data, coords_prep, coords_coeff, w, keys):
@@ -396,14 +408,15 @@ def sharded_rmw_fn(params: Params, mesh: Mesh, collective: str = "ring"):
     return fn
 
 
-def sharded_rpw_fn(params: Params, mesh: Mesh, collective: str = "ring"):
+def sharded_rpw_fn(params: Params, mesh: Mesh, collective: str = "ring",
+                   composed: bool = False):
     """read_prepare_write over row-sharded RAM: fn(data, coords, atk) ->
     (read_out, root), each a list over rows shards, all equal.  The data
     shards are carried exactly (ram.rpw_impl's exact-data-carry write), so
     they are not returned: pass the same shards and the roots [W, 1, C, L,
     N] to sharded_write_fn.  The root runs the RPW truncation, the
     read-out the READ truncation, as ram.rpw_impl."""
-    ctx = _prepare(params, mesh, collective)
+    ctx = _prepare(params, mesh, collective, composed)
 
     @torch.no_grad()
     def fn(data, coords, atk):
@@ -416,12 +429,12 @@ def sharded_rpw_fn(params: Params, mesh: Mesh, collective: str = "ring"):
     return fn
 
 
-def sharded_write_fn(params: Params, mesh: Mesh):
+def sharded_write_fn(params: Params, mesh: Mesh, composed: bool = False):
     """The write over row-sharded RAM, consuming sharded_rpw_fn's roots:
     fn(data, roots, w, coords_coeff, keys) -> a list of NEW row shards (the
     input shards are left as they were).  As ram.write_impl: each shard's
     root traced at the RPW truncation, the delta walked down to its rows."""
-    ctx = _prepare(params, mesh)
+    ctx = _prepare(params, mesh, composed=composed)
 
     @torch.no_grad()
     def fn(data, roots, w, coords_coeff, keys):
@@ -435,12 +448,15 @@ def sharded_write_fn(params: Params, mesh: Mesh):
     return fn
 
 
-def sharded_spectral_cache_fn(params: Params, mesh: Mesh):
+def sharded_spectral_cache_fn(params: Params, mesh: Mesh, composed: bool = False):
     """Each shard's spectral cache (the address-independent level-0
     transform of its rows' gadget digits): fn(data) -> a list over rows
     shards of [P, W * R_loc, C * L, N], for batched_read_fn(with_cache=True)
-    on the SAME shards."""
-    ctx = get_ntt_context(params.n, params.primes)
+    on the SAME shards.  The spectra are the same integers on either
+    context; ram.address.coordinate_product_batched refuses a cache for
+    chained CMux digits on the composed routes."""
+    ctx = get_ntt_context(params.n, params.primes,
+                          "two_pass" if composed else "radix2")
 
     @torch.no_grad()
     def fn(data):
@@ -450,7 +466,8 @@ def sharded_spectral_cache_fn(params: Params, mesh: Mesh):
 
 
 def batched_read_fn(params: Params, mesh: Mesh, with_cache: bool = False,
-                    collective: str = "ring", batch_slice: int = 64):
+                    collective: str = "ring", batch_slice: int = 64,
+                    composed: bool = False):
     """The sharded batched read: addresses over dp, RAM rows (strided) over
     rows.  Call as fn(data, coords_b, atk), or fn(data, coords_b, atk,
     cache) when with_cache (cache from sharded_spectral_cache_fn on the
@@ -459,7 +476,7 @@ def batched_read_fn(params: Params, mesh: Mesh, with_cache: bool = False,
     W, C, L, N] (each dp replica's reads, equal on every rows shard).  More
     than batch_slice addresses a replica run as consecutive slices of that
     size, as FheRam.read_batch does."""
-    ctx = _prepare(params, mesh, collective)
+    ctx = _prepare(params, mesh, collective, composed)
     if batch_slice < 1:
         raise ValueError(f"batch_slice = {batch_slice}")
 
@@ -484,7 +501,8 @@ def batched_read_fn(params: Params, mesh: Mesh, with_cache: bool = False,
     return fn
 
 
-def batched_rmw_fn(params: Params, mesh: Mesh, collective: str = "ring"):
+def batched_rmw_fn(params: Params, mesh: Mesh, collective: str = "ring",
+                   composed: bool = False):
     """The batched read-modify-write over the dp x rows mesh: B DISTINCT
     addresses over dp, RAM rows (strided) over rows.  Each dp replica runs
     its addresses' forward walks, traces and delta walks against the rows
@@ -496,7 +514,7 @@ def batched_rmw_fn(params: Params, mesh: Mesh, collective: str = "ring"):
     Call as fn(data, coords_prep_b, coords_coeff_b, w_b, keys) -> (outs, a
     list over dp of lists over rows shards of [B_loc, W, C, L, N]; a list of
     NEW row shards): coords and w_b from shard_addr_batch."""
-    ctx = _prepare(params, mesh, collective)
+    ctx = _prepare(params, mesh, collective, composed)
 
     @torch.no_grad()
     def fn(data, coords_prep_b, coords_coeff_b, w_b, keys):

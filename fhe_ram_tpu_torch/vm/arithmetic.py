@@ -11,7 +11,14 @@ chain kernel (11), the 6 bitwise ops as ONE launch of the bitwise kernel
 level.  `select_rd`'s rotation is one launch of kernel 10.
 
 Every CMux of the groups and of `select_rd` runs the ephemeral-word gadget
-truncation `_vm_trunc` (the same slicing at every ring degree: one route).
+truncation `_vm_trunc`, at every ring degree.  Those are the fused routes
+(a radix-2 context).  A two-pass context takes the JAX package's composed
+routes (its FHERAM_MXU=0 branches, and what it runs at every ring but N =
+4096): the carry-DP and bitwise groups as loops of keyed CMuxes under the
+same truncation (circuits.carry_chain_composed, truth_table_composed: the
+same integers as kernels 11 and 9), and the blind rotation as a loop of
+CMuxes with the full gadget -- so select_rd's rd there is the reference's
+composed one, not the fused route's.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..params import Params
-from ..ops.ntt import NTTContext
+from ..ops.ntt import NTTContext, fused_path_active
 from ..ops.modular import I32
 from ..ops import limb as limb_ops
 from ..ops import poly
@@ -100,14 +107,22 @@ def glwe_blind_rotation(params: Params, ctx: NTTContext, ct, prep_bits,
                         start: int, end: int, lsh: int = 0,
                         negate: bool = True):
     """Rotate ct by X^(+-(bits[start:end] << lsh)): a CMux chain over the
-    prepared bits, ONE launch of kernel 10, under the VM truncation."""
+    prepared bits.  Fused (a radix-2 context): ONE launch of kernel 10,
+    under the VM truncation.  Composed (a two-pass context): one CMux (a
+    batched fold) a bit with the full gadget, as the JAX package's composed
+    branch."""
     if end <= start:
         return ct
     sgn = -1 if negate else 1
-    return circuits.blind_rotate_fused(
-        params, ctx, ct[None], prep_bits, range(start, end),
-        [sgn << (k - start + lsh) for k in range(start, end)],
-        trunc=_vm_trunc(params)[0])[0]
+    amounts = [sgn << (k - start + lsh) for k in range(start, end)]
+    if fused_path_active(ctx):
+        return circuits.blind_rotate_fused(
+            params, ctx, ct[None], prep_bits, range(start, end), amounts,
+            trunc=_vm_trunc(params)[0])[0]
+    for k, t in zip(range(start, end), amounts):
+        ct = circuits.cmux(params, ctx, prep_bits[:, k: k + 1],
+                           poly.rotate(ct, t)[None], ct[None])[0]
+    return ct
 
 
 # --------------------------------------------------------------------------
@@ -116,7 +131,8 @@ def glwe_blind_rotation(params: Params, ctx: NTTContext, ct, prep_bits,
 
 def _dp_group(params: Params, ctx: NTTContext, ops, rs1p, rs2p, immp,
               bits: int):
-    """All carry-DP ops as one 2-state DP, MSB -> LSB, one launch."""
+    """All carry-DP ops as one 2-state DP, MSB -> LSB: one launch, or the
+    composed loop (circuits.carry_chain)."""
     specs = [_DP_SPECS[op] for op in ops]
     b_preps, groups = _sources(ops, rs2p, immp)
     F = circuits.carry_chain(params, ctx, [sp[:4] for sp in specs], rs1p,
@@ -126,7 +142,8 @@ def _dp_group(params: Params, ctx: NTTContext, ops, rs1p, rs2p, immp,
 
 def _bitwise_group(params: Params, ctx: NTTContext, ops, rs1p, rs2p, immp,
                    bits: int):
-    """All bitwise ops as one 4-leaf truth-table select, one launch."""
+    """All bitwise ops as one 4-leaf truth-table select: one launch, or
+    the composed loop (circuits.truth_table)."""
     b_preps, groups = _sources(ops, rs2p, immp)
     out = circuits.truth_table(params, ctx, [_BITWISE_TABLES[op] for op in ops],
                                rs1p, b_preps, groups, bits,

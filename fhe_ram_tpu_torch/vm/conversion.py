@@ -5,9 +5,12 @@ GGSW blind rotation turns the bits (u >> rsh) & mask of the encrypted
 word u into GGSW(X^-((u >> rsh & mask) << lsh)): start from the trivial
 gadget GGSW of X^0 (zero mask, zero noise: only row phases matter) and
 CMux all D*C rows through the pointer's bit GGSWs -- ONE launch of
-kernel 10 a digit.  The pointer's bits are prepared at the GGSW-apply
-parameterization (dnum_ggsw digits, limbs_evk_ggsw limbs), so their digit
-count matches the limbs of the rows they rotate.  The sign is the RAM's:
+kernel 10 a digit (a radix-2 context), or one keyed CMux a bit, one GGSW
+for all the rows (a two-pass context: the JAX package's composed branch);
+the same integers, the full gadget either way.  The pointer's bits are
+prepared at the GGSW-apply parameterization (dnum_ggsw digits,
+limbs_evk_ggsw limbs), so their digit count matches the limbs of the rows
+they rotate.  The sign is the RAM's:
 addresses rotate by X^-a."""
 
 from __future__ import annotations
@@ -15,9 +18,10 @@ from __future__ import annotations
 import torch
 
 from ..params import Params
-from ..ops.ntt import NTTContext
+from ..ops.ntt import NTTContext, fused_path_active
 from ..ops.modular import I32
 from ..ops import limb as limb_ops
+from ..ops import poly
 from ..core import ggsw
 from ..ram.address import Address, AddressPrepared
 from . import circuits
@@ -50,9 +54,15 @@ def scalar_to_ggsw_blind_rotation(params: Params, ctx: NTTContext, tv,
     if mask_bits == 0:
         return g
     sgn = -1 if negate else 1
-    rows = circuits.blind_rotate_fused(
-        params, ctx, g.reshape(D * C, C2, Lg, n), fheuint_prep,
-        range(rsh, rsh + mask_bits), [sgn << (lsh + j) for j in range(mask_bits)])
+    rows = g.reshape(D * C, C2, Lg, n)
+    amounts = [sgn << (lsh + j) for j in range(mask_bits)]
+    if fused_path_active(ctx):
+        rows = circuits.blind_rotate_fused(params, ctx, rows, fheuint_prep,
+                                           range(rsh, rsh + mask_bits), amounts)
+    else:
+        for j, t in enumerate(amounts):
+            rows = circuits.cmux_keyed(params, ctx, fheuint_prep[:, rsh + j: rsh + j + 1],
+                                       poly.rotate(rows, t)[None], rows[None])[0]
     return rows.reshape(D, C, C2, Lg, n)
 
 

@@ -23,7 +23,7 @@ from functools import lru_cache
 import torch
 
 from ..params import Params
-from ..ops.ntt import NTTContext, fused_path_active
+from ..ops.ntt import NTTContext
 from ..ops.modular import I32
 from ..ops import limb as limb_ops
 from ..ops import poly
@@ -81,11 +81,13 @@ def vm_cycle(params: Params, ctx: NTTContext,
     the RAM word at the pointer before the store, and a NEW RAM state with
     select_store's merged word written at the pointer.
 
-    A two-pass context (the composed routes, ops.ntt.fused_path_active) is
-    refused: the VM's composed routes are not ported yet."""
-    if not fused_path_active(ctx):
-        raise ValueError("vm_cycle has no composed routes yet: pass a radix-2 "
-                         "context (ops.ntt.get_ntt_context's default)")
+    The context picks the routes (ops.ntt.fused_path_active): a radix-2
+    context the fused kernels, a two-pass context the composed routes (the
+    JAX package's FHERAM_MXU=0), every CMux chain, merge, trace step and
+    split level a fold launch and torch glue.  fetched and new_data are the
+    same integers on both; rd too where the params do not truncate the
+    read path, else the composed rd is select_rd's full-gadget one (see
+    vm.arithmetic)."""
     if bits != 8 * params.word_size:
         raise ValueError(f"the cycle writes {bits // 8} bytes into words of "
                          f"{params.word_size}")

@@ -4,7 +4,9 @@ Builds the 16-slot test vector of every (offset 0-3 x op NONE/SB/SH/SW)
 store outcome -- byte and halfword splices of the loaded word y and the
 stored word x -- then blind-rotates it by the encrypted offset (stride 4)
 and op id, and partial-traces to clean.  Both rotations are ONE 4-step
-launch of kernel 10 (amounts -4, -8, -1, -2), untruncated: the stored
+launch of kernel 10 (amounts -4, -8, -1, -2) on a radix-2 context, or two
+composed arithmetic.glwe_blind_rotation chains (one CMux a bit) on a
+two-pass context; untruncated either way, the same integers: the stored
 word persists in the RAM."""
 
 from __future__ import annotations
@@ -12,13 +14,13 @@ from __future__ import annotations
 import torch
 
 from ..params import Params
-from ..ops.ntt import NTTContext
+from ..ops.ntt import NTTContext, fused_path_active
 from ..ops.modular import I32
 from ..ops import limb as limb_ops
 from ..ops import ntt_cuda
 from ..ops import poly
 from ..core import keyswitch
-from . import circuits
+from . import arithmetic, circuits
 
 STORE_OPS = ("none", "sb", "sh", "sw")
 
@@ -59,8 +61,13 @@ def construct_store_test_vector(params: Params, ctx: NTTContext, rs2, loaded,
 
 
 def store_rotation(params: Params, ctx: NTTContext, res, offset_prep, op_prep):
-    """Blind rotation by offset << 2, then by op: ONE 4-step chain of kernel
-    10 with amounts (-4, -8, -1, -2), the keys' full gadget."""
+    """Blind rotation by offset << 2, then by op, the keys' full gadget:
+    ONE 4-step chain of kernel 10 with amounts (-4, -8, -1, -2), or (a
+    two-pass context) the JAX package's two composed rotations."""
+    if not fused_path_active(ctx):
+        res = arithmetic.glwe_blind_rotation(params, ctx, res, offset_prep, 0, 2,
+                                             lsh=2)
+        return arithmetic.glwe_blind_rotation(params, ctx, res, op_prep, 0, 2)
     keys = torch.stack([circuits.ggsw_key_rows(offset_prep, 0),
                         circuits.ggsw_key_rows(offset_prep, 1),
                         circuits.ggsw_key_rows(op_prep, 0),

@@ -159,7 +159,10 @@ def test_load_decodes_with_the_ports_client():
     """The port's own client end to end: keygen, bootstrap_key_fast, two
     encrypted bytes -> load_word; the word decodes to the unsigned bytes,
     each lifted bit selects b * m under the noise bound, and the loaded
-    word feeds the ALU's add.  The prepared key of bootstrap_key (one GGSW
+    word feeds the ALU's add.  On a two-pass context (the composed routes'
+    traces) load_word gives the same integers, and so does the carry DP's
+    composed loop with the lifted bits (2 gadget rows) beside 3-row ones in
+    one keyed CMux.  The prepared key of bootstrap_key (one GGSW
     encryption a bit) decomposes a byte as the reference's test does."""
     ctx = tget_ctx(TPAR.n, TPAR.primes)
     src = trng.Source(91)
@@ -177,12 +180,16 @@ def test_load_decodes_with_the_ports_client():
                              tglwe.encode_vec(TPAR, vals, device="cpu"), src)
 
     signed = [5, -3]
-    word, prepared = tbd.load_word(TPAR, ctx, torch.stack([enc(x) for x in signed]),
-                                   bsk, ekp, bits=BITS)
+    cts = torch.stack([enc(x) for x in signed])
+    word, prepared = tbd.load_word(TPAR, ctx, cts, bsk, ekp, bits=BITS)
     us = [x & ((1 << P_BITS) - 1) for x in signed]
     want = us[0] | (us[1] << P_BITS)
     assert tfu.decrypt_word(TPAR, ctx, s_ntt, word, BITS) == want
     assert tfu.word_noise_log2(TPAR, ctx, s_ntt, word, want, BITS) < -(TPAR.k_pt + 1)
+    two = tget_ctx(TPAR.n, TPAR.primes, "two_pass")
+    for got, ref in zip(tbd.load_word(TPAR, two, cts, bsk, ekp, bits=BITS),
+                        (word, prepared)):
+        assert torch.equal(got, ref)
 
     # the GGSW-by-GGSW key, prepared: byte_to_bits of one byte decodes
     slow = tbd.bootstrap_key(TPAR, ctx, sk, s_ntt, src)
@@ -204,6 +211,12 @@ def test_load_decodes_with_the_ports_client():
     rhs = tfu.encrypt_prepared(TPAR, ctx, s_ntt, 0x33, src, BITS)
     words = tar._dp_group(TPAR, ctx, ("add",), prepared, rhs, rhs, BITS)
     assert tfu.decrypt_word(TPAR, ctx, s_ntt, words["add"], BITS) == (want + 0x33) & 0xFF
+    mixed = ("add", "addi")           # rs2: the lifted bits, imm: 3-row bits
+    fused = tar._dp_group(TPAR, ctx, mixed, rhs, prepared, rhs, BITS)
+    composed = tar._dp_group(TPAR, two, mixed, rhs, prepared, rhs, BITS)
+    assert all(torch.equal(composed[op], fused[op]) for op in mixed)
+    assert (tfu.decrypt_word(TPAR, ctx, s_ntt, composed["add"], BITS)
+            == (want + 0x33) & 0xFF)
 
 
 @pytest.mark.parametrize("what, i", [("bytes_to_bits bits", 0),

@@ -11,7 +11,9 @@ parallel/mesh.py) on the CPU, where every wrapper takes its plain version.
   at rows 2 and 4 with both collectives, the read-modify-write and the
   rpw/write pair (rows 4 is R == n_shards: one row a shard), the batched
   read at dp 2 x rows 2 with and without the cache, the batched
-  read-modify-write.  Integer arithmetic: np.array_equal / torch.equal.
+  read-modify-write; each also with composed=True (the composed routes:
+  a two-pass context), the same integers.
+  Integer arithmetic: np.array_equal / torch.equal.
   (The sharded read and write are held against the JAX package's
   read_impl / write_impl on the JAX client's ciphertexts in
   tests/test_torch_read.py.)
@@ -167,8 +169,13 @@ def _mesh(dp, rows):
     return tmesh.make_mesh(dp * rows, rows=rows, devices=CPU[:dp * rows])
 
 
+# the fused routes, and the composed ones (composed=True: the two-pass context)
+ROUTES = pytest.mark.parametrize("composed", [False, True], ids=["fused", "composed"])
+
+
+@ROUTES
 @pytest.mark.parametrize("rows", [2, 4])
-def test_sharded_read_equals_the_unsharded_read(world, rows):
+def test_sharded_read_equals_the_unsharded_read(world, rows, composed):
     w = world
     mesh = _mesh(1, rows)
     shards = tmesh.shard_data_rows(mesh, w.state.data)
@@ -176,15 +183,16 @@ def test_sharded_read_equals_the_unsharded_read(world, rows):
         _, prep = w.address(idx)
         want = w.server.read(w.state, prep)
         for collective in ("ring", "exchange"):
-            outs = tmesh.sharded_read_fn(PAR, mesh, collective)(
+            outs = tmesh.sharded_read_fn(PAR, mesh, collective, composed=composed)(
                 shards, prep.coordinates, w.keys.atk_glwe)
             assert len(outs) == rows
             assert all(torch.equal(o, want) for o in outs), (idx, collective)
         w.decodes(outs[0], idx, w.data)
 
 
+@ROUTES
 @pytest.mark.parametrize("rows", [2, 4], ids=["rows_2", "one_row_a_shard"])
-def test_sharded_write_paths_equal_rpw_and_write(world, rows):
+def test_sharded_write_paths_equal_rpw_and_write(world, rows, composed):
     """sharded_rmw_fn and the sharded_rpw_fn + sharded_write_fn pair:
     the un-permuted new RAM == the unsharded read_prepare_write + write;
     the read-outs decode to the old word (the rpw's equals the unsharded
@@ -198,19 +206,19 @@ def test_sharded_write_paths_equal_rpw_and_write(world, rows):
     out, pending = w.server.read_prepare_write(w.state, prep)
     want = w.server.write(pending, w_ct, coeff).data
 
-    outs, new = tmesh.sharded_rmw_fn(PAR, mesh)(
+    outs, new = tmesh.sharded_rmw_fn(PAR, mesh, composed=composed)(
         shards, prep.coordinates, coeff.coordinates, w_ct, w.keys)
     assert len(new) == rows and torch.equal(tmesh.unshard_rows(new), want)
     assert all(torch.equal(o, outs[0]) for o in outs)
     w.decodes(outs[0], idx, w.data)
     assert torch.equal(shards[0], tmesh.shard_data_rows(mesh, w.state.data)[0])
 
-    rpw_outs, roots = tmesh.sharded_rpw_fn(PAR, mesh)(
+    rpw_outs, roots = tmesh.sharded_rpw_fn(PAR, mesh, composed=composed)(
         shards, prep.coordinates, w.keys.atk_glwe)
     assert all(torch.equal(o, out) for o in rpw_outs)
     assert all(r.shape == (PAR.word_size, 1) + tuple(out.shape[1:]) for r in roots)
-    new2 = tmesh.sharded_write_fn(PAR, mesh)(shards, roots, w_ct, coeff.coordinates,
-                                             w.keys)
+    new2 = tmesh.sharded_write_fn(PAR, mesh, composed=composed)(
+        shards, roots, w_ct, coeff.coordinates, w.keys)
     assert torch.equal(tmesh.unshard_rows(new2), want)
 
     plain = w.data.copy()
@@ -219,10 +227,14 @@ def test_sharded_write_paths_equal_rpw_and_write(world, rows):
     w.decodes(back[0], idx, plain)
 
 
-def test_batched_paths_equal_the_unsharded_batch(world):
+@ROUTES
+def test_batched_paths_equal_the_unsharded_batch(world, composed):
     """At dp 2 x rows 2: batched_read_fn with and without the cache (in
-    slices of one address) == read_batch_impl; batched_rmw_fn ==
-    rmw_batch_impl on the read-outs and the whole new RAM."""
+    slices of one address; composed: the cache refused, as
+    ram.address.coordinate_product_batched refuses one for this preset's
+    chained CMux digits) ==
+    read_batch_impl; batched_rmw_fn == rmw_batch_impl on the read-outs and
+    the whole new RAM."""
     w = world
     mesh = _mesh(2, 2)
     shards = tmesh.shard_data_rows(mesh, w.state.data)
@@ -231,11 +243,17 @@ def test_batched_paths_equal_the_unsharded_batch(world):
     coeff_b = stack_addresses([c for c, _ in pairs])
     atk = w.keys.atk_glwe
     want = ram_mod.read_batch_impl(PAR, w.ctx, w.state.data, prep_b, atk)
-    cache = tmesh.sharded_spectral_cache_fn(PAR, mesh)(shards)
+    cache = tmesh.sharded_spectral_cache_fn(PAR, mesh, composed=composed)(shards)
     for with_cache in (False, True):
-        fn = tmesh.batched_read_fn(PAR, mesh, with_cache=with_cache, batch_slice=1)
-        outs = fn(shards, tmesh.shard_addr_batch(mesh, prep_b), atk,
-                  cache if with_cache else None)
+        fn = tmesh.batched_read_fn(PAR, mesh, with_cache=with_cache, batch_slice=1,
+                                   composed=composed)
+        args = (shards, tmesh.shard_addr_batch(mesh, prep_b), atk,
+                cache if with_cache else None)
+        if composed and with_cache:   # chained CMux digits: no spectral input
+            with pytest.raises(ValueError, match="chained CMux digits"):
+                fn(*args)
+            continue
+        outs = fn(*args)
         assert len(outs) == 2 and all(len(o) == 2 for o in outs)
         for k in range(2):
             assert torch.equal(torch.cat([o[k] for o in outs]), want), with_cache
@@ -248,7 +266,7 @@ def test_batched_paths_equal_the_unsharded_batch(world):
                                                   coeff_b, words, w.keys)
     keys = tmesh.replicated(mesh, w.keys)      # on the mesh's one device
     assert keys.tsk is w.keys.tsk and keys.atk_glwe[3] is w.keys.atk_glwe[3]
-    outs, new = tmesh.batched_rmw_fn(PAR, mesh)(
+    outs, new = tmesh.batched_rmw_fn(PAR, mesh, composed=composed)(
         shards, tmesh.shard_addr_batch(mesh, prep_b),
         tmesh.shard_addr_batch(mesh, coeff_b), tmesh.shard_addr_batch(mesh, words),
         keys)

@@ -96,6 +96,12 @@ from fhe_ram_tpu.ram import address, ram
 jit = functools.partial(jax.jit, compiler_options={
     "xla_backend_optimization_level": 0, "xla_cpu_parallel_codegen_split_count": 1,
     "xla_cpu_use_fusion_emitters": False})
+# every external product and keyswitch a jit of its own inside the
+# reference's: the many calls of one shape are traced once (same integers)
+for mod, name, static in ((ggsw, "external_product", (0, 1, 4)),
+                          (ggsw, "external_product_batched", (0, 1, 4, 6, 7)),
+                          (keyswitch, "keyswitch", (0, 1, 4, 6, 7))):
+    setattr(mod, name, jax.jit(getattr(mod, name), static_argnums=static))
 which, spec, in_file, out_file = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3], sys.argv[4]
 par = jparams.PARAMS_TEST_SMALL
 ctx = get_ntt_context(par.n, par.primes)

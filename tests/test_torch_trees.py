@@ -13,6 +13,7 @@ integer arithmetic)."""
 import functools
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import jax
@@ -86,8 +87,12 @@ def _split_levels(ct, gals, tk):
 def jax_refs():
     """The two fixtures below, made in two threads side by side: XLA
     compiles one side's JAX function outside the interpreter lock while the
-    other thread traces."""
-    with ThreadPoolExecutor(2) as pool:
+    other thread traces.  Every keyswitch of the JAX package is a jit of its
+    own inside theirs: the many of one shape are traced once (the same
+    integers; a third less CPU time)."""
+    with mock.patch.object(jks, "keyswitch", jax.jit(jks.keyswitch,
+                                                     static_argnums=(0, 1, 4, 6, 7))), \
+            ThreadPoolExecutor(2) as pool:
         ex, pk = pool.submit(_extraction), pool.submit(_packing)
         return {"extraction": ex.result(), "packing": pk.result()}
 

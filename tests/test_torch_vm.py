@@ -1,5 +1,8 @@
 """The VM slice of the PyTorch port held against the JAX package, on the
-CPU: every module of the slice that holds a kernel, bit for bit.
+CPU: every module of the slice that holds a kernel, bit for bit, on both
+of the port's routes -- the fused one (a radix-2 context: kernels 9-11) and
+the composed one (a two-pass context: loops of CMuxes, the JAX package's
+FHERAM_MXU=0 branches, which are what it runs on a CPU).
 
 Inputs are random int32 arrays of the right shapes made with numpy from a
 seed -- bit GGSWs, words, trace keys -- each side preparing its own
@@ -7,7 +10,7 @@ spectra (spectral arrays are never compared).  No keygen, no encryption:
 the integer functions are the same whatever the arrays hold.  The JAX side
 is three jitted functions, two at one ring and one at the other (their
 compile is what these tests cost; they compile side by side, in two
-threads):
+threads, each external product and keyswitch traced once a shape):
 
 * an untruncated ring (PARAMS_TEST_SMALL, log_n = 6): eval_ops + select_rd
   over ("none", "add", "xor", "srai", "sll", "srl") at 2 bits (kernels 11,
@@ -24,15 +27,18 @@ threads):
   group, and the truncated blind rotation, held against a loop of truncated
   keyed CMuxes over rotated rows -- the semantics the port has at every
   ring degree and the JAX package only on its fused path (ROADMAP.md
-  section 3).
+  section 3); and glwe_blind_rotation and select_rd (2-bit op id, 16-bit
+  words: a 2-step partial trace), which the JAX package runs composed,
+  with the full gadget, as the port's two-pass route does.
 
 Every comparison is np.array_equal on int32 tensors (integer arithmetic,
 tolerance 0).  The whole cycle decodes on the port alone in
 tests/test_torch_vm_cycle.py."""
 
+import contextlib
 import functools
-from unittest import mock
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import jax
@@ -86,10 +92,16 @@ TRUNC = dict(log_n=6, k_pt=3, decomp_n=(6,), word_size=2, max_addr=1 << 8,
 DP_OPS = ("addi", "sub", "slt")
 BW_OPS = ("xori", "and", "or")
 BROT_AMOUNTS = (-1, -2, -4)
+SEL_OPS, SEL_BITS = 4, 16     # select_rd at the truncated ring: 2 rotation bits
+BODIES = ("radix2", "two_pass")   # the fused routes, the composed routes
 
 
 def _t(a):
     return torch.from_numpy(np.array(a))   # a writable copy
+
+
+def _body_ctx(par, body):
+    return tget_ctx(par.n, par.primes, body)
 
 
 def _eq(got, want):
@@ -135,20 +147,33 @@ def _tprep_keys(tctx, keys):
 # the untruncated ring: eval_ops + select_rd, conversion, repack, store
 # ---------------------------------------------------------------------------
 
+def _trace_once():
+    """A context in which every external product and keyswitch of the JAX
+    package is a jit of its own inside the reference's jit: the many calls
+    of one shape are traced once (the same integers; a third of the
+    tracing, which is most of the compile's time here)."""
+    stack = contextlib.ExitStack()
+    for mod, name, static in ((jggsw, "external_product_keyed", (0, 1, 4, 6, 7, 8)),
+                              (jggsw, "external_product_batched", (0, 1, 4, 6, 7)),
+                              (jks, "keyswitch", (0, 1, 4, 6, 7))):
+        stack.enter_context(mock.patch.object(
+            mod, name, jax.jit(getattr(mod, name), static_argnums=static)))
+    return stack
+
+
 @pytest.fixture(scope="module")
 def jax_refs():
     """The references, compiled in two threads side by side: XLA compiles
     outside the interpreter lock while the other thread traces (less wall
     time; a third thread measured no faster and cost more CPU time)."""
     x = _small_inputs()
-    with ThreadPoolExecutor(2) as pool:
+    with _trace_once(), ThreadPoolExecutor(2) as pool:
         alu = pool.submit(_small_alu_reference, x)
         rest = pool.submit(_small_rest_reference, x)
         truncated = pool.submit(_truncated_reference)
-        par_t = TSMALL
-        small = (par_t, tget_ctx(par_t.n, par_t.primes), x,
+        small = (TSMALL, tget_ctx(TSMALL.n, TSMALL.primes), x,
                  {**alu.result(), **rest.result()})
-        return {"small": small, "truncated": truncated.result()}
+        return {"small": small, "truncated": (*_truncated_inputs(), truncated.result())}
 
 
 @pytest.fixture(scope="module")
@@ -235,12 +260,14 @@ def _tprep(tctx, b):
     return tggsw.prepare(tctx, _t(b))
 
 
-def test_eval_ops_and_select_rd_match_jax(small):
-    """Kernels 11 (add), 9 (xor) and 10 (select_rd's rotation), and the
-    shift group (srai against sll and srl: unequal source groups, the
-    immediate one zero-padded), in the packed ALU result and the selected
-    rd."""
-    par, tctx, x, want = small
+@pytest.mark.parametrize("body", BODIES)
+def test_eval_ops_and_select_rd_match_jax(small, body):
+    """Kernels 11 (add), 9 (xor) and 10 (select_rd's rotation), or their
+    composed loops, and the shift group (srai against sll and srl: unequal
+    source groups, the immediate one zero-padded), in the packed ALU result
+    and the selected rd."""
+    par, _, x, want = small
+    tctx = _body_ctx(par, body)
     atk = _tprep_keys(tctx, x["atk"])
     packed = tar.eval_ops(par, tctx, _tprep(tctx, x["rs1"]), _tprep(tctx, x["rs2"]),
                           _tprep(tctx, x["imm"]), atk, OPS, ALU_BITS)
@@ -263,11 +290,14 @@ def test_from_reference_carries_the_vm_operands(small):
         from_reference(vm={"b": want["prepared"]["rs1"][:2]}, device="cpu")
 
 
-def test_fheuint_to_address_matches_jax(small):
+@pytest.mark.parametrize("body", BODIES)
+def test_fheuint_to_address_matches_jax(small, body):
     """Both coordinates of the converted pointer (three blind rotations of
-    D*C rows, one with lsh = 3) from the JAX client's prepared pointer
-    carried across, and the prepared form is the port's prepare of them."""
-    par, tctx, x, want = small
+    D*C rows, one with lsh = 3: kernel 10, or one keyed CMux a bit) from
+    the JAX client's prepared pointer carried across, and the prepared form
+    is the port's prepare of them."""
+    par, _, x, want = small
+    tctx = _body_ctx(par, body)
     ptr = from_reference(vm={"ptr": want["prepared"]["ptr"]}, device="cpu").vm["ptr"]
     addr, prep = tconv.fheuint_to_address(par, tctx, ptr)
     assert len(addr.coordinates) == len(want["coords"]) == 2
@@ -276,23 +306,28 @@ def test_fheuint_to_address_matches_jax(small):
         assert torch.equal(gp, tggsw.prepare(tctx, _t(ref)))
 
 
-def test_word_to_ram_bytes_matches_jax(small):
-    par, tctx, x, want = small
+@pytest.mark.parametrize("body", BODIES)
+def test_word_to_ram_bytes_matches_jax(small, body):
+    par, _, x, want = small
+    tctx = _body_ctx(par, body)
     got = tcycle.word_to_ram_bytes(par, tctx, _t(x["word"]),
                                    _tprep_keys(tctx, x["atk"]), 8)
     assert got.shape == (1,) + tuple(x["word"].shape)
     assert _eq(got, want["wbytes"])
 
 
-@pytest.mark.parametrize("route", ("one_launch", "glwe_blind_rotation"))
-def test_store_rotations_match_jax(small, route):
+@pytest.mark.parametrize("route", ("store_rotation", "glwe_blind_rotation"))
+@pytest.mark.parametrize("body", BODIES)
+def test_store_rotations_match_jax(small, body, route):
     """JAX's two rotations, offset << 2 then op, untruncated, against the
-    port's ONE 4-step launch (-4, -8, -1, -2) and against the port's
-    glwe_blind_rotation called twice as JAX calls it."""
-    par, tctx, x, want = small
+    port's store_rotation (ONE 4-step launch (-4, -8, -1, -2), or the two
+    composed rotations) and against the port's glwe_blind_rotation called
+    twice as JAX calls it."""
+    par, _, x, want = small
+    tctx = _body_ctx(par, body)
     res, off, sop = (_t(x["store_res"]), _tprep(tctx, x["offset"]),
                      _tprep(tctx, x["sop"]))
-    if route == "one_launch":
+    if route == "store_rotation":
         got = tstore.store_rotation(par, tctx, res, off, sop)
     else:
         got = tar.glwe_blind_rotation(par, tctx, res, off, 0, 2, lsh=2)
@@ -326,12 +361,30 @@ def test_splice_matches_jax(small, case):
 # the truncated ring: the DP and bitwise groups, the truncated rotation
 # ---------------------------------------------------------------------------
 
+def _truncated_x():
+    """The truncated ring's random inputs, from their seed."""
+    par = JParams(**TRUNC)
+    inp = _Inputs(par, 43)
+    sel_gals = par.trace_gal_els[:par.log_n - (SEL_BITS.bit_length() - 1)]
+    return dict(rs1=inp.bits(BITS), rs2=inp.bits(BITS), imm=inp.bits(BITS),
+                rows=inp.word(2), rot_bits=inp.bits(len(BROT_AMOUNTS)),
+                atk={g: k for g, k in inp.trace_keys().items() if g in sel_gals})
+
+
+def _truncated_inputs():
+    """The port's side of the truncated ring: (params, context, inputs,
+    prepared bits)."""
+    par_t = TParams(**TRUNC)
+    tctx = tget_ctx(par_t.n, par_t.primes)
+    x = _truncated_x()
+    prep = {k: _tprep(tctx, x[k]) for k in ("rs1", "rs2", "imm", "rot_bits")}
+    return par_t, tctx, x, prep
+
+
 def _truncated_reference():
-    par_j, par_t = JParams(**TRUNC), TParams(**TRUNC)
-    jctx, tctx = jget_ctx(par_j.n, par_j.primes), tget_ctx(par_t.n, par_t.primes)
-    inp = _Inputs(par_j, 43)
-    x = dict(rs1=inp.bits(BITS), rs2=inp.bits(BITS), imm=inp.bits(BITS),
-             rows=inp.word(2), rot_bits=inp.bits(len(BROT_AMOUNTS)))
+    par_j = JParams(**TRUNC)
+    jctx = jget_ctx(par_j.n, par_j.primes)
+    x = _truncated_x()
     ept = jar._vm_trunc(par_j, BITS)[0]
     assert ept == (2, 3)
 
@@ -346,27 +399,37 @@ def _truncated_reference():
         step = jax.jit(lambda bit, high, rows: jcirc.cmux_keyed(
             par_j, jctx, bit, high[None], rows[None], trunc=ept)[0])
         rows, bits = x["rows"], pr(x["rot_bits"])
+        # composed here (N = 64): one full-gadget CMux a bit
+        rot = jar.glwe_blind_rotation(par_j, jctx, rows[0], bits, 2, 3, lsh=1,
+                                      negate=False)
+        sel = jar.select_rd(par_j, jctx, rows[1], bits, SEL_OPS,
+                            _jprep_keys(jctx, x["atk"]), SEL_BITS)
         for s, t in enumerate(BROT_AMOUNTS):
             rows = step(bits[:, s: s + 1], jpoly.rotate(rows, t), rows)
-        return dict(dp=dp, bw=bw, brot=rows)
+        return dict(dp=dp, bw=bw, brot=rows, rot=rot, sel=sel)
 
-    want = jax.tree_util.tree_map(np.asarray, _jit(jax_side)(x))
-    prep = {k: _tprep(tctx, x[k]) for k in ("rs1", "rs2", "imm", "rot_bits")}
-    return par_t, tctx, x, prep, want
+    return jax.tree_util.tree_map(np.asarray, _jit(jax_side)(x))
+
+
 
 
 @pytest.mark.parametrize("op", DP_OPS)
-def test_dp_group_matches_jax_truncated(truncated, op):
-    """Kernel 11's route: emit (addi), the subtract table (sub) and the
-    MSB flip (slt), the immediate and register groups of unequal size."""
-    par, tctx, x, prep, want = truncated
+@pytest.mark.parametrize("body", BODIES)
+def test_dp_group_matches_jax_truncated(truncated, body, op):
+    """Kernel 11's route and the composed loop: emit (addi), the subtract
+    table (sub) and the MSB flip (slt), the immediate and register groups
+    of unequal size."""
+    par, _, x, prep, want = truncated
+    tctx = _body_ctx(par, body)
     got = tar._dp_group(par, tctx, DP_OPS, prep["rs1"], prep["rs2"], prep["imm"], BITS)
     assert _eq(got[op], want["dp"][op])
 
 
 @pytest.mark.parametrize("op", BW_OPS)
-def test_bitwise_group_matches_jax_truncated(truncated, op):
-    par, tctx, x, prep, want = truncated
+@pytest.mark.parametrize("body", BODIES)
+def test_bitwise_group_matches_jax_truncated(truncated, body, op):
+    par, _, x, prep, want = truncated
+    tctx = _body_ctx(par, body)
     got = tar._bitwise_group(par, tctx, BW_OPS, prep["rs1"], prep["rs2"], prep["imm"],
                              BITS)
     assert _eq(got[op], want["bw"][op])
@@ -380,3 +443,18 @@ def test_truncated_blind_rotation_matches_the_jax_cmux_loop(truncated):
         par, tctx, _t(x["rows"]), prep["rot_bits"], range(len(BROT_AMOUNTS)),
         BROT_AMOUNTS, trunc=tar._vm_trunc(par, BITS)[0])
     assert _eq(got, want["brot"])
+
+
+def test_composed_rotation_and_select_rd_match_jax_truncated(truncated):
+    """The two-pass route's glwe_blind_rotation (one step, lsh = 1, not
+    negated) and select_rd (a rotation by 2 op-id bits and the partial
+    trace) == the JAX package's, which run composed at N = 64: the full
+    gadget, where the radix-2 route truncates (the test above)."""
+    par, _, x, prep, want = truncated
+    tctx = _body_ctx(par, "two_pass")
+    rot = tar.glwe_blind_rotation(par, tctx, _t(x["rows"][0]), prep["rot_bits"], 2, 3,
+                                  lsh=1, negate=False)
+    assert _eq(rot, want["rot"])
+    sel = tar.select_rd(par, tctx, _t(x["rows"][1]), prep["rot_bits"], SEL_OPS,
+                        _tprep_keys(tctx, x["atk"]), SEL_BITS)
+    assert _eq(sel, want["sel"])

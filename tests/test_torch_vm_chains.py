@@ -1,13 +1,15 @@
 """The VM chain kernels' plain versions against the composed loops, in the
 PyTorch port alone, on the CPU at log_n = 6.
 
-The composed loops are written here as the JAX package's composed path
-writes them: one keyed CMux (the batched fold's plain version) per step
-and source group, the smaller source group zero-padded to a rectangular
-row count.  The kernels' plain versions do without the padding and take
-the step's tables from `ntt_cuda.dp_leaf_rows`; the zero rows must stay
-inert.  The blind rotation runs a batch of 5 rows (a multiple of no row
-blocking) with amounts of both signs and past N.  The per-op circuits
+The composed loops are the package's composed routes (a two-pass context:
+circuits.carry_chain_composed, truth_table_composed), written as the JAX
+package's composed path writes them: one keyed CMux (the batched fold's
+plain version) per step and source group, the smaller source group
+zero-padded to a rectangular row count.  The kernels' plain versions do
+without the padding and take the step's tables from
+`ntt_cuda.dp_leaf_rows`; the zero rows must stay inert.  The blind
+rotation runs a batch of 5 rows (a multiple of no row blocking) with
+amounts of both signs and past N.  The per-op circuits
 (`circuits.add` ...) are the group circuits with one op, select_store's
 test vector is the JAX package's case-by-case loop, the shift group
 decodes on real encryptions (sll, srl and sra, an immediate group padded),
@@ -35,6 +37,11 @@ TRUNCATED = Params(log_n=6, k_pt=3, decomp_n=(6,), word_size=2, max_addr=1 << 8,
 RINGS = {"untruncated": PARAMS_TEST_SMALL, "truncated": TRUNCATED}
 
 
+def _two_pass(par):
+    """The composed routes' context."""
+    return get_ntt_context(par.n, par.primes, "two_pass")
+
+
 def _operands(par, seed, count=3, bits=BITS):
     rnd = np.random.default_rng(seed)
     ctx = get_ntt_context(par.n, par.primes)
@@ -48,83 +55,6 @@ def _operands(par, seed, count=3, bits=BITS):
     return ctx, [prep() for _ in range(count)], rnd
 
 
-def _composed_dp(par, ctx, ops, rs1p, rs2p, immp, bits):
-    """The carry-DP group as the JAX package's composed loop computes it."""
-    G = len(ops)
-    specs = [arithmetic._DP_SPECS[op] for op in ops]
-    ept = arithmetic._vm_trunc(par, bits)[0]
-    F = torch.stack([torch.stack([
-        circuits.fheuint.trivial_word(par, [sp[3](0)], bits, "cpu"),
-        circuits.fheuint.trivial_word(par, [sp[3](1)], bits, "cpu")])
-        for sp in specs])
-    groups = list(arithmetic._src_groups(ops).items())
-    for j in range(bits - 1, -1, -1):
-        delta = circuits._delta_slot(par, j, bits, device="cpu")
-        leaves = []
-        for gi, sp in enumerate(specs):
-            emit, subtab, flip = sp[:3]
-            t = {}
-            for a in (0, 1):
-                for b in (0, 1):
-                    for c in (0, 1):
-                        aa = 1 - a if (flip and j == bits - 1) else a
-                        bb = 1 - b if (flip and j == bits - 1) else b
-                        eff_b = (1 - bb) if subtab else bb
-                        base = F[gi, (aa + eff_b + c) >> 1]
-                        if emit:
-                            o = aa ^ eff_b ^ c if subtab else aa ^ bb ^ c
-                            base = base + o * delta
-                        t[(a, b, c)] = base
-            leaves.append(t)
-        rows_max = 4 * max(len(gis) for _, gis in groups)
-        hs, ls, keys = [], [], []
-        for is_imm, gis in groups:
-            hh = [leaves[gi][k] for gi in gis
-                  for k in ((0, 1, 0), (0, 1, 1), (1, 1, 0), (1, 1, 1))]
-            ll = [leaves[gi][k] for gi in gis
-                  for k in ((0, 0, 0), (0, 0, 1), (1, 0, 0), (1, 0, 1))]
-            zero = torch.zeros_like(hh[0])
-            hs.append(torch.stack(hh + [zero] * (rows_max - len(hh))))
-            ls.append(torch.stack(ll + [zero] * (rows_max - len(ll))))
-            keys.append((immp if is_imm else rs2p)[:, j: j + 1])
-        res = circuits.cmux_keyed(par, ctx, torch.cat(keys, dim=1),
-                                  torch.stack(hs), torch.stack(ls), trunc=ept)
-        inner = [None] * G
-        for si, (_, gis) in enumerate(groups):
-            for idx, gi in enumerate(gis):
-                inner[gi] = res[si, 4 * idx: 4 * idx + 4]
-        inner = torch.stack(inner)
-        shp = (1, 2 * G) + tuple(inner.shape[2:])
-        F = circuits.cmux_keyed(par, ctx, rs1p[:, j: j + 1],
-                                inner[:, 2:].reshape(shp), inner[:, :2].reshape(shp),
-                                trunc=ept)[0].reshape((G, 2) + tuple(inner.shape[2:]))
-    return {op: F[gi, sp[4]] for gi, (op, sp) in enumerate(zip(ops, specs))}
-
-
-def _composed_bitwise(par, ctx, ops, rs1p, rs2p, immp, bits):
-    """The bitwise group as the JAX package's composed path computes it."""
-    ept = arithmetic._vm_trunc(par, bits)[0]
-    G = len(ops)
-
-    def leaf(gi, v):
-        one = circuits.fheuint.trivial_word(
-            par, [arithmetic._BITWISE_TABLES[ops[gi]][v]], bits, "cpu")
-        return one.expand((bits,) + tuple(one.shape))
-
-    hi, lo = [None] * G, [None] * G
-    for is_imm, gis in arithmetic._src_groups(ops).items():
-        highs = torch.stack([leaf(gi, 3) for gi in gis] + [leaf(gi, 1) for gi in gis], 1)
-        lows = torch.stack([leaf(gi, 2) for gi in gis] + [leaf(gi, 0) for gi in gis], 1)
-        res = circuits.cmux_keyed(par, ctx, (immp if is_imm else rs2p)[:, :bits],
-                                  highs, lows, trunc=ept)
-        for idx, gi in enumerate(gis):
-            hi[gi], lo[gi] = res[:, idx], res[:, len(gis) + idx]
-    out = circuits.cmux_keyed(par, ctx, rs1p[:, :bits], torch.stack(hi, 1),
-                              torch.stack(lo, 1), trunc=ept)
-    return {op: circuits.assemble_word(par, out[:, gi], bits)
-            for gi, op in enumerate(ops)}
-
-
 @pytest.mark.parametrize("ring", RINGS)
 def test_dp_chain_plain_equals_the_zero_padded_composed_loop(ring):
     """One immediate op against three register ops (padded 4 -> 12 rows
@@ -133,7 +63,7 @@ def test_dp_chain_plain_equals_the_zero_padded_composed_loop(ring):
     ctx, (rs1p, rs2p, immp), _ = _operands(par, 61)
     ops = ("addi", "sub", "slt", "sltu")
     got = arithmetic._dp_group(par, ctx, ops, rs1p, rs2p, immp, BITS)
-    want = _composed_dp(par, ctx, ops, rs1p, rs2p, immp, BITS)
+    want = arithmetic._dp_group(par, _two_pass(par), ops, rs1p, rs2p, immp, BITS)
     for op in ops:
         assert torch.equal(got[op], want[op]), op
 
@@ -144,7 +74,7 @@ def test_bitwise_plain_equals_the_composed_loop(ring):
     ctx, (rs1p, rs2p, immp), _ = _operands(par, 62)
     ops = ("xor", "ori", "and", "andi", "or")
     got = arithmetic._bitwise_group(par, ctx, ops, rs1p, rs2p, immp, BITS)
-    want = _composed_bitwise(par, ctx, ops, rs1p, rs2p, immp, BITS)
+    want = arithmetic._bitwise_group(par, _two_pass(par), ops, rs1p, rs2p, immp, BITS)
     for op in ops:
         assert torch.equal(got[op], want[op]), op
 

@@ -8,8 +8,12 @@ storing a halfword at byte offset 2 at an encrypted pointer: rd decodes to
 a + b mod 2^32, the fetched word is the RAM's word at the pointer, the
 stored word reads back at the pointer, a neighbour is unchanged, all under
 the 2^-(k_pt+1) noise bound.  Then select_store's selection over six more
-(offset, op) pairs, on one test vector.  The cycle's parts are held against
-the JAX package bit for bit in tests/test_torch_vm.py."""
+(offset, op) pairs, on one test vector.  The same cycle on a two-pass
+context (the composed routes, the JAX package's FHERAM_MXU=0) gives rd, the
+fetched word and the new RAM bit for bit: this ring truncates no read path,
+so even select_rd's full-gadget rotation equals the fused one.  The cycle's
+parts are held against the JAX package bit for bit in
+tests/test_torch_vm.py."""
 
 import numpy as np
 import pytest
@@ -60,10 +64,15 @@ def _check_ram_word(ctx, s_ntt, out, plain, idx):
         assert noise < -(PAR.k_pt + 1), (idx, i, noise)
 
 
-def test_vm_cycle_decodes(client):
+A, B = 0x89ABCDEF, 0x7654F321
+PTR, NEIGHBOUR, OFFSET = 300, 301, 2
+
+
+@pytest.fixture(scope="module")
+def cycle(client):
+    """One fused vm_cycle: its encrypted operands and its outputs."""
     ctx, src, s_ntt, keys, data, ram_ct = client
-    a, b = 0x89ABCDEF, 0x7654F321
-    ptr, neighbour, offset = 300, 301, 2
+    a, b, ptr, offset = A, B, PTR, OFFSET
     loaded = _word(data, ptr)
     enc = dict(
         rs1p=fheuint.encrypt_prepared(PAR, ctx, s_ntt, a, src, BITS),
@@ -78,8 +87,15 @@ def test_vm_cycle_decodes(client):
                                           dnum=PAR.dnum_ggsw,
                                           limbs=PAR.limbs_evk_ggsw))
     # no op of OPS reads the immediate: rs2's bits stand in for it
-    rd, fetched, new_data = vm_cycle(PAR, ctx, keys, immp=enc["rs2p"], data=ram_ct,
-                                     ops=OPS, bits=BITS, **enc)
+    enc["immp"] = enc["rs2p"]
+    return enc, vm_cycle(PAR, ctx, keys, data=ram_ct, ops=OPS, bits=BITS, **enc)
+
+
+def test_vm_cycle_decodes(client, cycle):
+    ctx, src, s_ntt, keys, data, ram_ct = client
+    a, b, ptr, neighbour = A, B, PTR, NEIGHBOUR
+    loaded = _word(data, ptr)
+    _, (rd, fetched, new_data) = cycle
     assert fheuint.decrypt_word(PAR, ctx, s_ntt, rd, BITS) == (a + b) & MASK
     assert fheuint.word_noise_log2(PAR, ctx, s_ntt, rd, (a + b) & MASK,
                                    BITS) < -(PAR.k_pt + 1)
@@ -94,6 +110,17 @@ def test_vm_cycle_decodes(client):
         out = server.read(state, address.prepare(
             ctx, address.encrypt(PAR, ctx, s_ntt, idx, src)))
         _check_ram_word(ctx, s_ntt, out, after, idx)
+
+
+def test_composed_vm_cycle_equals_the_fused_one(client, cycle):
+    """vm_cycle on a two-pass context, the same operands and RAM: rd,
+    fetched and the whole new RAM bit-equal to the fused cycle's."""
+    ctx, src, s_ntt, keys, data, ram_ct = client
+    enc, fused = cycle
+    two_pass = get_ntt_context(PAR.n, PAR.primes, "two_pass")
+    composed = vm_cycle(PAR, two_pass, keys, data=ram_ct, ops=OPS, bits=BITS, **enc)
+    for name, got, want in zip(("rd", "fetched", "new_data"), composed, fused):
+        assert torch.equal(got, want), name
 
 
 @pytest.fixture(scope="module")
