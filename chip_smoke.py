@@ -5,8 +5,11 @@ encrypted VM instruction cycles, the VM LOAD (a word read from the RAM
 decomposed into its encrypted bits), the 2^24 RAM unsharded and
 row-sharded over a mesh whose shards all lie on the card, and the batched
 read and read-modify-write over two processes that share the card; the
-RAM server, the VM and the mesh also on their composed routes (a two-pass
-context, the counterpart of the JAX package's FHERAM_MXU=0).
+RAM server, the VM, the LOAD, the mesh and the two processes also on their
+composed routes (a two-pass context, the counterpart of the JAX package's
+FHERAM_MXU=0); the upstream's README parameterization through reads and
+read-modify-write cycles, and the port's fhe_ram_demo at the upstream's
+committed-code default.
 
     python3 chip_smoke.py [--seed N] [--reads N] [--profile] [--kernels-only]
                           [--verbose-build]
@@ -33,7 +36,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  kernels 1, 7, 8, 9, 12 and 14 also bit-equal to their
                  predecessors (fhe_ram_tpu_torch/tools/; kernels 1's and
                  12's in both bodies), timed beside; kernels 5, 1, 3 and 2
-                 also at every shape the LOAD gives them
+                 also at every shape the LOAD gives them, on both contexts
+                 (the two-pass one's trace a fold a step); kernels 2 and 1
+                 at the shapes PARAMS_README_2_18's read and write cycle
+                 add (four and two chained digits, the full gadget, its
+                 GGSW inversion)
   read           the port's own client from --seed: keygen, 2^18 x 4 random
                  bytes encrypted, then --reads reads at distinct addresses;
                  each decrypts to the plaintext word under the noise bound;
@@ -79,6 +86,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  from the shared spectra) and to the same call through the
                  plain versions; decoded; launches a call as counted from
                  the code
+  readme_rmw     on that client: 8 fused FheRam.reads at distinct addresses,
+                 then 4 read_prepare_write + write cycles at fresh ones
+                 (words from --seed), each cycle's new RAM read back at its
+                 address and at an untouched neighbour; every byte decodes
+                 under the bound; launches a call as counted from the code;
+                 the first read and cycle (read-out and new RAM) bit-equal
+                 through the plain versions and through the composed
+                 server, and every shape the kernels' run of it launched
+                 one that the plain run launched too; read, rpw and write
+                 times (host clock, no shape recording in the timed calls)
+  demo           fhe_ram_tpu_torch/examples/fhe_ram_demo.py's run at
+                 PARAMS_CODE_2_14 (keygen, 2^14 x 4 bytes, read,
+                 read_prepare_write, write, read-back, neighbour): fused,
+                 composed, and fused again through the plain versions, one
+                 seed: every step decodes; the read, the rpw read-out and
+                 pending state, the new RAM and both reads after the write
+                 bit-equal across the three; launches a step as counted
+                 from the code
   vm_cycle       the port's own client at PARAMS_2_18_READOPT (keygen, RAM,
                  operands from --seed), then 6 chained vm_cycle calls, each
                  selecting another ALU op by its encrypted id and storing
@@ -111,6 +136,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
   load_vs_plain  the first 64 chain steps of that word on the production key
                  and amounts, then the trace, the affine and the lift of the
                  result, through the kernels and the plain versions: bit-equal
+  composed_load  one load_word of the same fetched word on a two-pass
+                 context (the coefficient key: no second prepared key): the
+                 word and the prepared bits bit-equal to the fused load's;
+                 only kernels 1, 2 and 5, at the launches counted from the
+                 code and at checked shapes; then timed as the fused load
+                 is (3 loads, host clock and CUDA events, each bit-equal)
   read_2_24      the port's own client at PARAMS_2_24_READOPT (keygen, 2^24 x
                  4 random bytes encrypted: 1.5 GiB of ciphertext), 4 reads at
                  distinct addresses through FheRam.read; each decodes
@@ -137,7 +168,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  workers launched) and FheRam.rmw_batch; the words decode and
                  the new words read back; dist_read_ms, dist_rmw_batch_ms (max
                  over the processes, median of 3) beside the single process's,
-                 and the RMW's int32 all_reduce alone (dist_all_reduce_ms)
+                 and the RMW's int32 all_reduce alone (dist_all_reduce_ms);
+                 the same workers run both paths again with composed=True:
+                 bit-equal to their fused outputs and to the single-process
+                 composed factories' (held against the plain versions at
+                 every shape the workers launched), only kernels 1, 2, 5
+                 and 13, at the launches counted from the code
   sharded_rmw    2 chained sharded_rmw_fn cycles, then a sharded_rpw_fn +
                  sharded_write_fn pair: each new RAM, un-permuted, equals the
                  unsharded read_prepare_write + write; old words out, new words
@@ -154,7 +190,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  of 4 (dp 2 x rows 2): every output bit-equal to the fused
                  factory's; only kernels 1, 2, 5, 13, 14 at the counts
                  written in the code; times beside the fused calls'
-  kernels        one line for all kernels: launches over the twenty paths,
+  kernels        one line for all kernels: launches over the twenty-six paths,
                  error, time, the plain version's time, the card's bound, and
                  for the collectives the library call's time
 
@@ -164,6 +200,8 @@ nvcc; imports fhe_ram_tpu_torch only.
 
 import argparse
 import collections
+import contextlib
+import io
 import json
 import math
 import os
@@ -326,6 +364,7 @@ DIST_TIMEOUT_S = 300
 # -- the composed chained-digit batched read at PARAMS_README_2_18 ------------
 
 CHAINED_BATCH = 8   # addresses of the batched read (4 + 2 CMux digits of 3 bits)
+DEMO_CONFIG = "2_14"   # fhe_ram_demo's --config: PARAMS_CODE_2_14
 # (shards, pack roots a chunk[, stride]) of every collective launch on those
 # paths, each held against its plain version: the single read's root at rows
 # 4 (driven) and 2 and 8, a batch of 8 roots at rows 4, the batched RMW's 2
@@ -450,6 +489,7 @@ LOAD_KEY_CHUNK = 512     # indicator GGSWs the client encrypts together
 LOAD_TIMED = 3           # timed loads (host clock, median)
 LOAD_PREFIX = 64         # chain steps held against the plain versions
 LOAD_SELECT_BITS = (0, 7, 13, 31)
+LOAD_TWO_PASS = " (two-pass context)"   # the note suffix of the composed LOAD's calls
 # the wrappers on the LOAD's path (module attribute -> launch counter)
 LOAD_WRAPPERS = {"fused_external_fold_batched": "fused_external_fold_batched",
                  "ntt_fwd_cuda": "ntt_fwd", "fused_trace": "fused_trace",
@@ -469,11 +509,13 @@ def load_note(*args, **kw):
 
 def load_shapes(par, ctx, limbs):
     """(counter name, note, call, (bytes, operations)) of every shape the
-    LOAD gives kernels 5, 1, 3 and 2 at `par`, random inputs of those
-    shapes: a chain step's keyed product (the row's two GGSWs against the
-    2 x K rotated accumulators) and its key pair's transform, a phase's
-    trace of K accumulators, and the lift (every bit's row against the
-    tensor key, then the transform of the lifted stack)."""
+    LOAD gives kernels 5, 1, 3 and 2 at `par` on ctx's route, random inputs
+    of those shapes: a chain step's keyed product (the row's two GGSWs
+    against the 2 x K rotated accumulators) and its key pair's transform, a
+    phase's trace of K accumulators (on a two-pass context one fold a
+    step: the composed route), and the lift (every bit's row against the
+    tensor key, then the transform of the lifted stack).  A two-pass
+    context's notes end in LOAD_TWO_PASS."""
     from fhe_ram_tpu_torch.ops import ntt_cuda
     from fhe_ram_tpu_torch.vm import bitdecomp
 
@@ -481,6 +523,7 @@ def load_shapes(par, ctx, limbs):
     D, Dg, Lgk, Lk, S = par.dnum_ct, par.dnum_ggsw, par.limbs_evk_ggsw, par.limbs_evk_trace, par.log_n
     poly_b, bits = 4 * n, LOAD_BYTE_BITS * par.word_size
     K = par.word_size * LOAD_CHUNK * bitdecomp._LIFT_ROWS   # tests a phase
+    body = LOAD_TWO_PASS if ctx.body == "two_pass" else ""
 
     def spectra(shape):
         return ntt_cuda.ntt_fwd_cuda(ctx, limbs(shape))
@@ -489,7 +532,8 @@ def load_shapes(par, ctx, limbs):
     T5, M5 = C * D, C * LOAD_KEY_LIMBS
     x5 = limbs((2, K, T5, n))
     k5 = spectra((2, 1, T5, M5, n)).permute(1, 0, 2, 3, 4, 5).contiguous()
-    out.append(("fused_external_fold_batched", load_note(x5, k5, L, C, base=None, sign=1),
+    out.append(("fused_external_fold_batched",
+                load_note(x5, k5, L, C, base=None, sign=1) + body,
                 lambda: ntt_cuda.fused_external_fold_batched(ctx, x5, k5, L, C,
                                                              base=None, sign=1),
                 (poly_b * (2 * K * T5 + 2 * P * T5 * M5 + 2 * K * C * L),
@@ -498,22 +542,133 @@ def load_shapes(par, ctx, limbs):
                                                     par.limbs_ggsw, n)):
         x1 = limbs(shape)
         polys = x1.numel() // n
-        out.append(("ntt_fwd", load_note(x1), lambda x1=x1: ntt_cuda.ntt_fwd_cuda(ctx, x1),
+        out.append(("ntt_fwd", load_note(x1) + body,
+                    lambda x1=x1: ntt_cuda.ntt_fwd_cuda(ctx, x1),
                     (polys * poly_b * (1 + P), polys * P * ntt_ops(n))))
     T3, M3 = rank * D, C * Lk
     ct3 = limbs((K, C, L, n))
-    k3 = spectra((S, T3, M3, n)).permute(1, 0, 2, 3, 4).contiguous()
-    gals = tuple(par.trace_gal_els[:S])
-    out.append(("fused_trace", load_note(ct3, k3, gals),
-                lambda: ntt_cuda.fused_trace(ctx, ct3, k3, gals),
-                (poly_b * (2 * K * C * L + S * P * T3 * M3), S * fold_ops(K, T3, M3, n))))
+    if body:
+        # a trace step: the automorphed mask's digits against one key, the
+        # row and the automorphed body as the base
+        x3, b3 = limbs((K, T3, n)), limbs((K, C, L, n), bits=17)
+        k3 = spectra((1, T3, M3, n))
+        out.append(("fused_external_fold",
+                    load_note(x3, k3, L, C, base=b3, sign=-1) + body,
+                    lambda: ntt_cuda.fused_external_fold(ctx, x3, k3, L, C, base=b3,
+                                                         sign=-1),
+                    (poly_b * (K * T3 + P * T3 * M3 + 2 * K * C * L),
+                     fold_ops(K, T3, M3, n))))
+    else:
+        k3 = spectra((S, T3, M3, n)).permute(1, 0, 2, 3, 4).contiguous()
+        gals = tuple(par.trace_gal_els[:S])
+        out.append(("fused_trace", load_note(ct3, k3, gals),
+                    lambda: ntt_cuda.fused_trace(ctx, ct3, k3, gals),
+                    (poly_b * (2 * K * C * L + S * P * T3 * M3),
+                     S * fold_ops(K, T3, M3, n))))
     T2, M2, Lg = C * Dg, C * Lgk, par.limbs_ggsw
     x2 = limbs((bits, T2, n))
     k2 = spectra((1, T2, M2, n))
-    out.append(("fused_external_fold", load_note(x2, k2, Lg, C),
+    out.append(("fused_external_fold", load_note(x2, k2, Lg, C) + body,
                 lambda: ntt_cuda.fused_external_fold(ctx, x2, k2, Lg, C),
                 (poly_b * (bits * T2 + P * T2 * M2 + bits * C * Lg), fold_ops(bits, T2, M2, n))))
     return out
+
+
+# -- PARAMS_README_2_18's read and write cycle (kernels 2 and 1) -------------
+
+README_READS = 8     # fused reads at distinct addresses
+
+
+def readme_shapes(par, ctx, limbs):
+    """(counter name, note, call, (bytes, operations)) of the shapes of
+    kernels 2 and 1 a read and a write cycle at `par` (chained CMux digits
+    of the full gadget, no truncation) launch and the other presets' paths
+    do not: each level's digit chain (the read's and rpw's, the write's
+    delta and update), the GGSW inversion's keyswitch and tensor-key
+    product (one GGSW digit's rows), and the transform of an inverted
+    coordinate; random inputs of those shapes."""
+    from fhe_ram_tpu_torch.ops import ntt_cuda
+
+    n, P, C, L, rank = par.n, par.num_primes, par.rank + 1, par.limbs_ct, par.rank
+    D, Lg, Lgk = par.dnum_ct, par.limbs_ggsw, par.limbs_evk_ggsw
+    poly_b = 4 * n
+    out = []
+    T, M = C * L, C * Lg
+    for rows, row in zip((par.word_size * par.num_rows, par.word_size),
+                         par.base2d().rows):
+        dig = len(row.bases)
+        x = limbs((rows, T, n))
+        k = ntt_cuda.ntt_fwd_cuda(ctx, limbs((dig, T, M, n)))
+        out.append(("fused_external_fold",
+                    f"x[{rows},{T},{n}] keys[{P},{dig},{T},{M},{n}] ({dig} chained "
+                    "digits, full gadget)",
+                    lambda x=x, k=k: ntt_cuda.fused_external_fold(ctx, x, k, L, C),
+                    (poly_b * (rows * T + P * dig * T * M + rows * C * L),
+                     dig * fold_ops(rows, T, M, n))))
+    # the inversion of one digit's GGSW: its D b-rows keyswitched (Lg input
+    # digits, Lgk key limbs, out Lg limbs, base and sign -1), then the
+    # tensor-key product of the result
+    T_ks, T_tk, M_i = rank * Lg, C * Lg, C * Lgk
+    x_ks, b_ks = limbs((D, T_ks, n)), limbs((D, C, Lg, n), bits=17)
+    k_ks = ntt_cuda.ntt_fwd_cuda(ctx, limbs((1, T_ks, M_i, n)))
+    out.append(("fused_external_fold",
+                f"x[{D},{T_ks},{n}] keys[{P},1,{T_ks},{M_i},{n}] out_limbs={Lg} base, "
+                "sign=-1 (GGSW inversion keyswitch, full gadget)",
+                lambda: ntt_cuda.fused_external_fold(ctx, x_ks, k_ks, Lg, C, base=b_ks,
+                                                     sign=-1),
+                (poly_b * (D * T_ks + P * T_ks * M_i + 2 * D * C * Lg),
+                 fold_ops(D, T_ks, M_i, n))))
+    x_tk = limbs((D, T_tk, n))
+    k_tk = ntt_cuda.ntt_fwd_cuda(ctx, limbs((1, T_tk, M_i, n)))
+    out.append(("fused_external_fold",
+                f"x[{D},{T_tk},{n}] keys[{P},1,{T_tk},{M_i},{n}] out_limbs={Lg} "
+                "(GGSW inversion tensor key, full gadget)",
+                lambda: ntt_cuda.fused_external_fold(ctx, x_tk, k_tk, Lg, C),
+                (poly_b * (D * T_tk + P * T_tk * M_i + D * C * Lg),
+                 fold_ops(D, T_tk, M_i, n))))
+    for row in par.base2d().rows:
+        x1 = limbs((len(row.bases), D, C, C, Lg, n))
+        polys = x1.numel() // n
+        out.append(("ntt_fwd", f"x{list(x1.shape)} (an inverted coordinate)",
+                    lambda x1=x1: ntt_cuda.ntt_fwd_cuda(ctx, x1),
+                    (polys * poly_b * (1 + P), polys * P * ntt_ops(n))))
+    return out
+
+
+def rmw_cycle_launches(par, composed=False):
+    """Launches of one FheRam.read (read_prepare_write the same) and of one
+    write at `par` (two address levels, the rows in one pack chunk),
+    counted from the code.  Fused: a fold a level (its digit chain in the
+    launch), a merge a pack level, a trace; the write a trace, the delta's
+    and the update's products, 1 + rank folds a digit of either coordinate
+    (its GGSW inversion: the keyswitch, the tensor-key products), a
+    transform a coordinate, a split a level.  Composed: each merge, trace
+    step and split level one fold instead of its kernel."""
+    levels = (par.num_rows - 1).bit_length()
+    inv = (1 + par.rank) * sum(len(r.bases) for r in par.base2d().rows)
+    if composed:
+        return (dict(fused_external_fold=par.n2 + levels + par.log_n),
+                dict(fused_external_fold=par.log_n + inv + levels + 2, ntt_fwd=par.n2))
+    return (dict(fused_external_fold=par.n2, fused_pack_merge=levels, fused_trace=1),
+            dict(fused_trace=1, fused_external_fold=2 + inv, ntt_fwd=par.n2,
+                 fused_split=levels))
+
+
+def word_noise(par, ctx, s_ntt, out, want_bytes, what):
+    """The worst log2 noise of the word `out` [W, C, L, N], every byte of
+    which must decode to want_bytes' under the bound; fails otherwise."""
+    from fhe_ram_tpu_torch.core import glwe
+
+    ph = glwe.phase(par, ctx, s_ntt, out)
+    worst = -1e9
+    for i in range(par.word_size):
+        want = glwe.cast_u8_signed(int(want_bytes[i]), par.k_pt)
+        val, noise = glwe.decode_coeff0(par, ph[i], want)
+        if int(val) != want or not noise < -(par.k_pt + 1):
+            fail(f"{what}, byte {i}: decoded {int(val)} (noise 2^{float(noise):.2f}), "
+                 f"stored {want}")
+        worst = max(worst, float(noise))
+    return worst
 
 
 def vm_call(ctx, name, args):
@@ -547,6 +702,9 @@ def main():
     from fhe_ram_tpu_torch.params import PARAMS_2_18_TURBO_READOPT as PAR
     from fhe_ram_tpu_torch.params import PARAMS_2_18_READOPT as VPAR
     from fhe_ram_tpu_torch.params import PARAMS_2_24_READOPT as BPAR
+    from fhe_ram_tpu_torch.params import PARAMS_README_2_18 as CPAR
+    from fhe_ram_tpu_torch.examples import fhe_ram_demo
+    from fhe_ram_tpu_torch.examples import multihost_dryrun as dryrun
     from fhe_ram_tpu_torch.parallel import collective as coll_mod
     from fhe_ram_tpu_torch.parallel import mesh as mesh_mod
     from fhe_ram_tpu_torch.ops import limb as limb_ops
@@ -1038,7 +1196,17 @@ def main():
     # kernels 5, 1, 3 and 2 at every shape the VM LOAD gives them at this
     # preset (load_shapes); the load phase below records what it launches
     # and fails on a shape not checked here
-    for name, shape, fn, work in load_shapes(PAR, ctx, limbs):
+    # and under the two-pass context, as the composed LOAD gives them
+    for c_ in (ctx, tctx):
+        for name, shape, fn, work in load_shapes(PAR, c_, limbs):
+            check(name, shape, fn, plain_reps=1, work=work)
+            del fn
+    # kernels 2 and 1 at the shapes PARAMS_README_2_18's read and write cycle
+    # add (readme_shapes: four chained digits over 256 rows and two over 4,
+    # the full gadget, the GGSW inversion of its 68-bit digits); the
+    # readme_rmw phase holds every shape it launches against the plain
+    # versions through its first read and cycle
+    for name, shape, fn, work in readme_shapes(CPAR, ctx, limbs):
         check(name, shape, fn, plain_reps=1, work=work)
         del fn
     emit({"phase": "kernel_checks", "ok": True, "tolerance": 0, "checks": checks,
@@ -1134,14 +1302,15 @@ def main():
     addrs = [0, PAR.max_addr - 1] + picks[:n_reads]
     rest = picks[n_reads:]
     read_ms, worst_noise, per_read, outs = [], -1e9, None, {}
+    read_want, write_want = rmw_cycle_launches(PAR)
+    pc_read_want, pc_write_want = rmw_cycle_launches(PAR, composed=True)
     for idx in addrs:
         ap_ = prepared(idx)
         out, ms, delta = launches_of(lambda: server.read(state, ap_))
         read_ms.append(ms)
         if per_read is None:
             per_read = delta
-        expect_launches(f"read at {idx}", delta, fused_external_fold=2,
-                        fused_trace=1, fused_pack_merge=6)
+        expect_launches(f"read at {idx}", delta, **read_want)
         worst_noise = max(worst_noise, decode(out, idx, "read"))
         outs[idx] = (ap_, out)
     path_launches = dict(ntt_cuda.LAUNCHES)
@@ -1185,10 +1354,8 @@ def main():
             lambda: server.read_prepare_write(state, ap_))
         new_state, t_wr, l_wr = launches_of(
             lambda: server.write(pending, w_ct, addr))
-        expect_launches(f"read_prepare_write at {idx}", l_rpw,
-                        fused_external_fold=2, fused_pack_merge=6, fused_trace=1)
-        expect_launches(f"write at {idx}", l_wr, fused_trace=1,
-                        fused_external_fold=6, ntt_fwd=2, fused_split=6)
+        expect_launches(f"read_prepare_write at {idx}", l_rpw, **read_want)
+        expect_launches(f"write at {idx}", l_wr, **write_want)
         if cycle_launches is None:
             cycle_launches = {"read_prepare_write": l_rpw, "write": l_wr}
         rpw_ms.append(t_rpw)
@@ -1488,8 +1655,7 @@ def main():
     for idx in addrs:
         ap_ = address_mod.prepare(cctx, c_coeff[idx])
         out, ms, c_per_read = launches_of(lambda: cserver.read(state, ap_))
-        expect_launches(f"composed read at {idx}", c_per_read,
-                        fused_external_fold=20)
+        expect_launches(f"composed read at {idx}", c_per_read, **pc_read_want)
         c_read_ms.append(ms)
         if not torch.equal(out, fused_out[idx]):
             fail(f"composed read at {idx}: differs from the fused server's read")
@@ -1524,10 +1690,8 @@ def main():
         (out, pending), t_rpw, l_rpw = launches_of(
             lambda: cserver.read_prepare_write(state, ap_))
         new_state, t_wr, l_wr = launches_of(lambda: cserver.write(pending, w_ct, addr))
-        expect_launches(f"composed read_prepare_write at {idx}", l_rpw,
-                        fused_external_fold=20)
-        expect_launches(f"composed write at {idx}", l_wr,
-                        fused_external_fold=24, ntt_fwd=2)
+        expect_launches(f"composed read_prepare_write at {idx}", l_rpw, **pc_read_want)
+        expect_launches(f"composed write at {idx}", l_wr, **pc_write_want)
         c_cycle_l = {"read_prepare_write": l_rpw, "write": l_wr}
         c_rpw_ms.append(t_rpw)
         c_write_ms.append(t_wr)
@@ -1640,8 +1804,6 @@ def main():
     # the fused server's.  Launches a call, counted from the code: 2 batched
     # folds (level 0, level 1), a merge a level and a trace step one fold
     # each, no transform.
-    from fhe_ram_tpu_torch.params import PARAMS_README_2_18 as CPAR
-
     t_phase = time.time()
     rctx = get_ntt_context(CPAR.n, CPAR.primes)
     rsrc = rng.Source(args.seed + 40)
@@ -1686,16 +1848,10 @@ def main():
     if not torch.equal(r_plain, r_got):
         fail("composed chained read_batch: kernels and plain versions disagree")
     del r_plain
-    worst_rb = -1e9
-    r_ph = glwe.phase(CPAR, rctx, rs_ntt, r_got)
-    for k, idx in enumerate(r_idx):
-        for i in range(CPAR.word_size):
-            want = glwe.cast_u8_signed(int(rdata[idx * CPAR.word_size + i]), CPAR.k_pt)
-            val, noise = glwe.decode_coeff0(CPAR, r_ph[k, i], want)
-            if int(val) != want or not noise < -(CPAR.k_pt + 1):
-                fail(f"composed chained read_batch at {idx}, byte {i}: decoded "
-                     f"{int(val)} (noise 2^{float(noise):.2f}), stored {want}")
-            worst_rb = max(worst_rb, float(noise))
+    CW = CPAR.word_size
+    worst_rb = max(word_noise(CPAR, rctx, rs_ntt, r_got[k], rdata[idx * CW: (idx + 1) * CW],
+                              f"composed chained read_batch at {idx}")
+                   for k, idx in enumerate(r_idx))
     emit({"phase": "composed_chained_batch", "ok": True, "preset": "PARAMS_README_2_18",
           "batch": CHAINED_BATCH, "addresses": r_idx, "digits": r_digits,
           "equal_to_fused_server": True, "equal_to_plain_versions": True,
@@ -1706,7 +1862,190 @@ def main():
           "fused_read_batch_ms_all": r_fused_all,
           "worst_noise_log2": worst_rb, "noise_bound_log2": -(CPAR.k_pt + 1),
           "launches_per_call": l_rb, "setup_seconds": round(r_setup_s, 2)})
-    del rserver, rcserver, rstate, rkeys, r_b, r_got, r_fused, r_ph
+    del r_b, r_got, r_fused
+
+    # ---- readme_rmw: the README parameterization's read and RMW cycle -------
+    # On that client (PARAMS_README_2_18: 4 + 2 chained CMux digits of 3
+    # bits, no truncation anywhere, k_ggsw = 68): README_READS fused reads at
+    # distinct addresses, then CYCLES read_prepare_write + write cycles at
+    # fresh addresses (words from --seed), launches a call as counted from
+    # the code (rmw_cycle_launches).  Outside the counted windows: every
+    # read-out decodes, each cycle's new RAM is read at its address and at
+    # an untouched neighbour; the first read and the first cycle run again
+    # on the kernels, through the plain versions and through the composed
+    # server, bit-equal (read-out and all of the new RAM), and every shape
+    # the kernels' rerun launched (every address gives the same shapes) is
+    # one the plain run launched too (the shape notes of
+    # multihost_dryrun.recording_shapes, kept out of the timed calls).
+    c_read_want, c_write_want = rmw_cycle_launches(CPAR)
+    cc_read_want, cc_write_want = rmw_cycle_launches(CPAR, composed=True)
+    rfresh = [int(a) for a in np.random.default_rng(args.seed + 43).permutation(
+        CPAR.max_addr) if int(a) not in set(r_idx)][:README_READS + 2 * CYCLES]
+    rr_idx, rc_idx = rfresh[:README_READS], rfresh[README_READS:]
+    rcoeff = {i: address_mod.encrypt(CPAR, rctx, rs_ntt, i, rsrc) for i in rfresh}
+    rprep = {i: address_mod.prepare(rctx, a) for i, a in rcoeff.items()}
+    rwords = np.random.default_rng(args.seed + 44).integers(
+        0, 256, size=(CYCLES, CW)).astype(np.uint8)
+    rw_cts = [ram_mod.encrypt_write_word(CPAR, rctx, rs_ntt, w_, rsrc) for w_ in rwords]
+    rseen, rplain_seen = {}, {}
+    ntt_cuda.reset_launches()
+    rread_ms, rread_out, rcycles = [], {}, []
+    for i in rr_idx:
+        out, ms, delta = launches_of(lambda: rserver.read(rstate, rprep[i]))
+        expect_launches(f"README read at {i}", delta, **c_read_want)
+        rread_ms.append(ms)
+        rread_out[i] = out
+    st = rstate
+    for k in range(CYCLES):
+        i = rc_idx[2 * k]
+        (out, pend), t_rpw, l_rpw = launches_of(
+            lambda: rserver.read_prepare_write(st, rprep[i]))
+        new, t_wr, l_wr = launches_of(lambda: rserver.write(pend, rw_cts[k], rcoeff[i]))
+        expect_launches(f"README read_prepare_write at {i}", l_rpw, **c_read_want)
+        expect_launches(f"README write at {i}", l_wr, **c_write_want)
+        rcycles.append({"state": st, "address": i, "out": out, "new": new,
+                        "rpw_ms": t_rpw, "write_ms": t_wr})
+        st = new
+    readme_launches = dict(ntt_cuda.LAUNCHES)
+    worst_r = -1e9
+    for i in rr_idx:
+        worst_r = max(worst_r, word_noise(CPAR, rctx, rs_ntt, rread_out[i],
+                                          rdata[i * CW: (i + 1) * CW], f"README read at {i}"))
+    r_plain = rdata.copy()
+    for k, rcyc in enumerate(rcycles):
+        i, nb = rcyc["address"], rc_idx[2 * k + 1]
+        worst_r = max(worst_r, word_noise(CPAR, rctx, rs_ntt, rcyc["out"],
+                                          r_plain[i * CW: (i + 1) * CW],
+                                          f"README read_prepare_write at {i}"))
+        r_plain[i * CW: (i + 1) * CW] = rwords[k]
+        for j, what in ((i, "README read-back"), (nb, "README untouched neighbour")):
+            back = rserver.read(rcyc["new"], rprep[j])
+            worst_r = max(worst_r, word_noise(CPAR, rctx, rs_ntt, back,
+                                              r_plain[j * CW: (j + 1) * CW],
+                                              f"{what} at {j} after cycle {k}"))
+    # the first read and the first cycle again: on the kernels with the
+    # shapes recorded (apart from the timed calls, which the recording's
+    # notes would slow), through the plain versions, then through the
+    # composed server
+    i0, c0 = rr_idx[0], rcycles[0]
+
+    def readme_first(srv):
+        out_ = srv.read(rstate, rprep[i0])
+        rpw_, pend_ = srv.read_prepare_write(c0["state"], rprep[c0["address"]])
+        return out_, rpw_, srv.write(pend_, rw_cts[0], rcoeff[c0["address"]])
+
+    with dryrun.recording_shapes(rseen):
+        s_out, s_rpw, s_new = readme_first(rserver)
+    with ntt_cuda.plain_versions(), dryrun.recording_shapes(rplain_seen):
+        (p_out, p_rpw, p_new), rplain_ms = timed(lambda: readme_first(rserver))
+    ntt_cuda.reset_launches()
+    (cr_out, cr_rpw, cr_new), rcomposed_ms = timed(lambda: readme_first(rcserver))
+    only_composed("readme_rmw (composed server)", ntt_cuda.LAUNCHES)
+    expect_launches("README composed read, rpw and write", dict(ntt_cuda.LAUNCHES),
+                    fused_external_fold=2 * cc_read_want["fused_external_fold"]
+                    + cc_write_want["fused_external_fold"],
+                    ntt_fwd=cc_write_want["ntt_fwd"])
+    for what, (a_, b_) in {"recorded read": (s_out, rread_out[i0]),
+                           "recorded rpw": (s_rpw, c0["out"]),
+                           "recorded write": (s_new.data, c0["new"].data),
+                           "plain read": (p_out, rread_out[i0]),
+                           "plain rpw": (p_rpw, c0["out"]),
+                           "plain write": (p_new.data, c0["new"].data),
+                           "composed read": (cr_out, rread_out[i0]),
+                           "composed rpw": (cr_rpw, c0["out"]),
+                           "composed write": (cr_new.data, c0["new"].data)}.items():
+        if not torch.equal(a_, b_):
+            fail(f"readme_rmw: the {what} differs from the kernels' fused call")
+    unchecked = set(rseen) - set(rplain_seen)
+    if unchecked:
+        fail(f"readme_rmw: shapes {sorted(unchecked)} launched, not held against the "
+             "plain versions")
+    if args.profile:
+        traced("README read", lambda: rserver.read(rstate, rprep[i0]),
+               statistics.median(rread_ms))
+        pend = []
+        traced("README read_prepare_write", lambda: pend.append(rserver.read_prepare_write(
+            c0["state"], rprep[c0["address"]])[1]),
+            statistics.median(c["rpw_ms"] for c in rcycles))
+        traced("README write", lambda: rserver.write(pend[0], rw_cts[0], rcoeff[c0["address"]]),
+               statistics.median(c["write_ms"] for c in rcycles))
+    emit({"phase": "readme_rmw", "ok": True, "preset": "PARAMS_README_2_18",
+          "card": card, "digits": r_digits, "reads": README_READS,
+          "read_addresses": rr_idx, "cycles": CYCLES,
+          "cycle_addresses": rc_idx[0::2], "neighbours": rc_idx[1::2],
+          "readme_read_ms": statistics.median(rread_ms), "readme_read_ms_all": rread_ms,
+          "readme_rpw_ms": statistics.median(c["rpw_ms"] for c in rcycles),
+          "readme_write_ms": statistics.median(c["write_ms"] for c in rcycles),
+          "readme_rpw_ms_all": [c["rpw_ms"] for c in rcycles],
+          "readme_write_ms_all": [c["write_ms"] for c in rcycles],
+          "plain_first_read_and_cycle_ms": rplain_ms,
+          "composed_first_read_and_cycle_ms": rcomposed_ms,
+          "equal_to": "the first read, rpw read-out and new RAM == the plain "
+                      "versions' == the composed server's",
+          "shapes_launched": sorted(rseen),
+          "worst_noise_log2": worst_r, "noise_bound_log2": -(CPAR.k_pt + 1),
+          "launches_per_call": {"read": c_read_want, "write": c_write_want,
+                                "composed_read": cc_read_want,
+                                "composed_write": cc_write_want}})
+    del rserver, rcserver, rstate, rkeys, rcycles, rread_out, p_new, cr_new, s_new
+
+    # ---- demo: fhe_ram_tpu_torch/examples/fhe_ram_demo.py at PARAMS_CODE_2_14 --
+    # The port's demo as a user runs it (its own client from --seed: keygen,
+    # 2^14 x 4 bytes, an address, a word): fused, composed, and fused again
+    # through the plain versions.  Every step decodes (run raises
+    # otherwise); the read, the rpw read-out and pending state, the new RAM
+    # and both reads after the write are the same integers in the three
+    # runs; the counts are set to 0 before each run and read after it (its
+    # client's transforms included), and each timed server step launches
+    # what rmw_cycle_launches counts.
+    from fhe_ram_tpu_torch.params import PARAMS_CODE_2_14 as DPAR
+
+    d_read_want, d_write_want = rmw_cycle_launches(DPAR)
+    dc_read_want, dc_write_want = rmw_cycle_launches(DPAR, composed=True)
+    demo_runs, demo_launches = {}, {}
+    for route, composed in (("fused", False), ("composed", True), ("plain", False)):
+        ntt_cuda.reset_launches()
+        with (ntt_cuda.plain_versions() if route == "plain" else contextlib.nullcontext(),
+              contextlib.redirect_stdout(io.StringIO())):
+            try:
+                demo_runs[route] = fhe_ram_demo.run(DEMO_CONFIG, dev, seed=args.seed,
+                                                    composed=composed)
+            except RuntimeError as e:
+                fail(f"demo ({route}): {e}")
+        demo_launches[route] = dict(ntt_cuda.LAUNCHES)
+    for route, (rd_, wr_) in (("fused", (d_read_want, d_write_want)),
+                              ("composed", (dc_read_want, dc_write_want))):
+        steps = demo_runs[route]["launches"]
+        for step, want in (("read", rd_), ("read_prepare_write", rd_), ("write", wr_)):
+            expect_launches(f"demo ({route}) {step}", {k: steps[step].get(k, 0)
+                                                        for k in ntt_cuda.LAUNCHES}, **want)
+    only_composed("demo (composed)", demo_launches["composed"])
+    if any(demo_launches["plain"].values()):
+        fail(f"demo (plain): launches {demo_launches['plain']}")
+    want_t = demo_runs["fused"]["tensors"]
+    for route in ("composed", "plain"):
+        for name, t in demo_runs[route]["tensors"].items():
+            same = (len(t) == len(want_t[name]) and all(
+                torch.equal(a, b) for a, b in zip(t, want_t[name]))
+                if name == "rpw_tree" else torch.equal(t, want_t[name]))
+            if not same:
+                fail(f"demo: {route} {name} differs from the fused run's")
+        if demo_runs[route]["values"] != demo_runs["fused"]["values"]:
+            fail(f"demo: {route} decoded other values")
+    emit({"phase": "demo", "ok": True, "preset": demo_runs["fused"]["preset"],
+          "config": DEMO_CONFIG, "card": card, "seed": args.seed,
+          "address": demo_runs["fused"]["address"],
+          "equal_across": ["fused", "composed", "plain"],
+          "compared": sorted(want_t), "values": demo_runs["fused"]["values"],
+          "worst_noise_log2": {r: max(d["worst_noise_log2"].values())
+                               for r, d in demo_runs.items()},
+          "noise_bound_log2": demo_runs["fused"]["noise_bound_log2"],
+          "ms": {r: {k: v * 1e3 for k, v in d["seconds"].items()}
+                 for r, d in demo_runs.items()},
+          "launches_per_step": {r: demo_runs[r]["launches"] for r in ("fused", "composed")},
+          "launches_per_run": {r: {k: v for k, v in c_.items() if v}
+                               for r, c_ in demo_launches.items()}})
+    del demo_runs, want_t
 
     # ---- the VM instruction cycle at PARAMS_2_18_READOPT -----------------------
     from fhe_ram_tpu_torch.vm import arithmetic, conversion, fheuint, store
@@ -1990,24 +2329,25 @@ def main():
     load_seen = {k: collections.Counter() for k in LOAD_WRAPPERS.values()}
     real_load = {a: getattr(ntt_cuda, a) for a in LOAD_WRAPPERS}
 
-    def record_load(on):
+    def record_load(on, seen=load_seen):
         for attr, name in LOAD_WRAPPERS.items():
             if not on:
                 setattr(ntt_cuda, attr, real_load[attr])
                 continue
 
             def call(ctx_, *a, _attr=attr, _name=name, **kw):
-                load_seen[_name][load_note(*a, **kw)] += 1
+                body = LOAD_TWO_PASS if ctx_.body == "two_pass" else ""
+                seen[_name][load_note(*a, **kw) + body] += 1
                 return real_load[_attr](ctx_, *a, **kw)
             setattr(ntt_cuda, attr, call)
 
-    def load(key):
-        return bitdecomp.load_word(PAR, ctx, fetched, key, ekp, LB)
+    def load(key, lctx=ctx):
+        return bitdecomp.load_word(PAR, lctx, fetched, key, ekp, LB)
 
-    def counted_load(key, what, **want):
-        record_load(True)
+    def counted_load(key, what, lctx=ctx, seen=load_seen, **want):
+        record_load(True, seen)
         try:
-            out, ms, delta = launches_of(lambda: load(key))
+            out, ms, delta = launches_of(lambda: load(key, lctx))
         finally:
             record_load(False)
         expect_launches(what, delta, **want)
@@ -2023,20 +2363,28 @@ def main():
         bsk_key, "load", fused_external_fold_batched=phases * steps,
         ntt_fwd=phases * steps + 1, fused_trace=phases, fused_external_fold=lift_folds)
     per_load = {k: dict(v) for k, v in load_seen.items()}   # shape -> launches a load
-    load_ms, load_event_ms = [], []
-    for _ in range(LOAD_TIMED):
-        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev0.record()
-        again = load(bsk_key)
-        ev1.record()
-        torch.cuda.synchronize()
-        load_ms.append((time.perf_counter() - t0) * 1e3)
-        load_event_ms.append(ev0.elapsed_time(ev1))
-        if not (torch.equal(again[0], lword) and torch.equal(again[1], lprep)):
-            fail("load: two loads of one word differ")
-    del again
+
+    def timed_loads(lctx, what):
+        """LOAD_TIMED loads on bsk_key after the counted one, the wrappers
+        unrecorded: (host-clock ms, CUDA-event ms) of each; each bit-equal
+        to the fused load's word and prepared bits."""
+        host_ms, event_ms = [], []
+        for _ in range(LOAD_TIMED):
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            again = load(bsk_key, lctx)
+            ev1.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(ev0.elapsed_time(ev1))
+            if not (torch.equal(again[0], lword) and torch.equal(again[1], lprep)):
+                fail(f"{what}: a timed load differs from the fused counted load")
+        return host_ms, event_ms
+
+    load_ms, load_event_ms = timed_loads(ctx, "load")
     # decode (outside the counted window): the word, then a select of an
     # encrypted m by each of some lifted bits
     got = fheuint.decrypt_word(PAR, ctx, s_ntt, lword, LB)
@@ -2139,7 +2487,43 @@ def main():
     if args.profile:
         traced("load_word (coefficient key)", lambda: load(bsk_key),
                statistics.median(load_ms), top=24)
-    del bsk_prep, pword, pprep, bsk_key, lword, lprep, fetched
+    del bsk_prep, pword, pprep
+    torch.cuda.empty_cache()
+
+    # ---- composed_load: the same word's LOAD on the two-pass context ---------
+    # The composed routes (the JAX package's LOAD reaches them through
+    # fused_path_active): the chain as on the fused route (kernel 5 a step,
+    # the pair's transform), each trace step one fold, the lift's folds; on
+    # the coefficient key of the load phase, so no second prepared key.
+    # Counted once, every launch kernel 1, 2 or 5 at a shape the kernel
+    # checks held under the two-pass context; then timed as the fused load
+    # is (LOAD_TIMED loads, unrecorded), so the two medians compare, as do
+    # the two counted first loads.
+    load_seen_c = {k: collections.Counter() for k in LOAD_WRAPPERS.values()}
+    (cword, cprep), c_first_ms, c_load_launches = counted_load(
+        bsk_key, "composed load", lctx=tctx, seen=load_seen_c,
+        fused_external_fold_batched=phases * steps, ntt_fwd=phases * steps + 1,
+        fused_external_fold=phases * PAR.log_n + lift_folds)
+    only_composed("composed_load", c_load_launches)
+    if not (torch.equal(cword, lword) and torch.equal(cprep, lprep)):
+        fail("composed load: the word or the prepared bits differ from the fused load's")
+    for name, notes in load_seen_c.items():
+        checked = {r["shape"] for r in checks.get(name, [])}
+        if not set(notes) <= checked:
+            fail(f"{name}: the composed LOAD launched shapes "
+                 f"{sorted(set(notes) - checked)} that no kernel check held")
+    c_load_ms, c_load_event_ms = timed_loads(tctx, "composed load")
+    emit({"phase": "composed_load", "ok": True, "preset": "PARAMS_2_18_TURBO_READOPT",
+          "card": card, "address": lidx, "context": "two_pass",
+          "equal_to_fused_load": "word and prepared bits",
+          "composed_load_ms_median": statistics.median(c_load_ms),
+          "composed_load_ms": c_load_ms, "composed_load_event_ms": c_load_event_ms,
+          "composed_first_load_ms": c_first_ms,
+          "fused_load_ms_median": statistics.median(load_ms), "fused_load_ms": load_ms,
+          "fused_load_event_ms": load_event_ms, "fused_first_load_ms": first_ms,
+          "launches_per_load": {k: v for k, v in c_load_launches.items() if v},
+          "launches_per_load_by_shape": {k: dict(v) for k, v in load_seen_c.items() if v}})
+    del cword, cprep, bsk_key, lword, lprep, fetched
     torch.cuda.empty_cache()
 
     # ---- the 2^24 configuration: the unsharded read, then the row-sharded ----
@@ -2217,6 +2601,17 @@ def main():
         walk(kernel_out, plain_out, "")
         return plain_ms
 
+    def same_outputs(a, b, what):
+        """Every tensor of a (nested list) output bit-equal to b's."""
+        if isinstance(a, torch.Tensor):
+            if not torch.equal(a, b):
+                fail(f"composed {what}: differs from the fused factory's output")
+            return
+        if len(a) != len(b):
+            fail(f"composed {what}: {len(a)} parts against {len(b)}")
+        for x, y in zip(a, b):
+            same_outputs(x, y, what)
+
     # the collectives' launched shapes, recorded on the counted paths
     seen_coll = {k: set() for k in COLLECTIVES}
     real_coll = {k: getattr(coll_mod, k) for k in COLLECTIVES}
@@ -2252,8 +2647,7 @@ def main():
     for idx in big_reads:
         out, ms, delta = counted(lambda: bserver.read(bstate, baddrs[idx][1]),
                                  read24_launches)
-        expect_launches(f"2^24 read at {idx}", delta, fused_external_fold=2,
-                        fused_pack_merge=LV, fused_trace=1)
+        expect_launches(f"2^24 read at {idx}", delta, **rmw_cycle_launches(BPAR)[0])
         big_ms.append(ms)
         big_out[idx] = out
     big_read_peak = torch.cuda.max_memory_allocated()
@@ -2407,8 +2801,6 @@ def main():
     # versions: every shape the workers launched is one it launched) and
     # rmw_batch.  Two processes share one card: the times are no scaling
     # number.
-    from fhe_ram_tpu_torch.examples import multihost_dryrun as dryrun
-
     dpicks = [int(a) for a in np.random.default_rng(args.seed + 30).choice(
         PAR.max_addr, size=2 * DIST_BATCH, replace=False)]
     d_read, d_rmw = dpicks[:DIST_BATCH], dpicks[DIST_BATCH:]
@@ -2454,23 +2846,56 @@ def main():
     plain_sp_ms = {"read": equal_to_plain(sp_r, sp_read_call, "dist: single-process read"),
                    "rmw_batch": equal_to_plain((sp_o, sp_new), sp_rmw_call,
                                                "dist: single-process batched RMW")}
+    # the same single-process calls on the composed routes: their shapes
+    # recorded, held against the plain versions and equal to the fused ones
+    spc_read = mesh_mod.batched_read_fn(PAR, d_mesh, composed=True)
+    spc_rmw = mesh_mod.batched_rmw_fn(PAR, d_mesh, composed=True)
+
+    def spc_read_call():
+        return spc_read(d_shards, mesh_mod.shard_addr_batch(d_mesh, d_read_b), ekp.atk_glwe)
+
+    def spc_rmw_call():
+        return spc_rmw(d_shards, mesh_mod.shard_addr_batch(d_mesh, d_prep_b),
+                       mesh_mod.shard_addr_batch(d_mesh, d_coeff_b),
+                       mesh_mod.shard_addr_batch(d_mesh, d_w_b), ekp)
+    spc_seen = {}
+    with dryrun.recording_shapes(spc_seen):
+        spc_r = spc_read_call()
+        spc_o, spc_new = spc_rmw_call()
+    plain_sp_ms.update({
+        "composed_read": equal_to_plain(spc_r, spc_read_call,
+                                        "dist: single-process composed read"),
+        "composed_rmw_batch": equal_to_plain((spc_o, spc_new), spc_rmw_call,
+                                             "dist: single-process composed batched RMW")})
+    same_outputs((spc_r, spc_o, spc_new), (sp_r, sp_o, sp_new), "dist single-process calls")
     want_read = server.read_batch(state, d_read_b)
     u_outs, u_state = server.rmw_batch(state, d_prep_b, d_coeff_b, d_w_b)
     sp_new = mesh_mod.unshard_rows(sp_new)
     if not torch.equal(sp_new, u_state.data):
         fail("dist: the single-process batched_rmw_fn's new RAM differs from rmw_batch's")
     b_loc = DIST_BATCH // DIST_PROCS
-    dist_launches = {p_: dict.fromkeys(ntt_cuda.LAUNCHES, 0) for p_ in ("read", "rmw_batch")}
+    DIST_PATHS = ("read", "rmw_batch", "composed_read", "composed_rmw_batch")
+    dist_launches = {p_: dict.fromkeys(ntt_cuda.LAUNCHES, 0) for p_ in DIST_PATHS}
+    DLV = PAR.num_rows.bit_length() - 1   # merge levels a rows shard's pack
+    # a worker's launches, counted from the code; composed (as
+    # composed_sharded counts them): each merge, trace step and split level
+    # one fold
     want_per_worker = {
         "read": dict(fused_external_fold_batched=2 * DIST_ROWS, ntt_fwd=DIST_ROWS,
-                     fused_pack_merge=(PAR.num_rows.bit_length() - 1) * DIST_ROWS,
+                     fused_pack_merge=DLV * DIST_ROWS,
                      fused_trace=DIST_ROWS, ring_all_gather=1),
         "rmw_batch": dict(fused_external_fold_batched=4 * DIST_ROWS,
                           fused_external_fold=4 * DIST_ROWS, ntt_fwd=3 * DIST_ROWS,
-                          fused_pack_merge=(PAR.num_rows.bit_length() - 1) * DIST_ROWS,
+                          fused_pack_merge=DLV * DIST_ROWS,
                           fused_trace=DIST_ROWS,
-                          fused_split=(PAR.num_rows.bit_length() - 1) * DIST_ROWS,
-                          ring_all_gather=1)}
+                          fused_split=DLV * DIST_ROWS,
+                          ring_all_gather=1),
+        "composed_read": dict(fused_external_fold_batched=2 * DIST_ROWS, ntt_fwd=DIST_ROWS,
+                              fused_external_fold=(DLV + PAR.log_n) * DIST_ROWS,
+                              ring_all_gather=1),
+        "composed_rmw_batch": dict(fused_external_fold_batched=4 * DIST_ROWS,
+                                   fused_external_fold=(4 + PAR.log_n + 2 * DLV) * DIST_ROWS,
+                                   ntt_fwd=3 * DIST_ROWS, ring_all_gather=1)}
     for r, wk in enumerate(workers):
         if wk["mesh"] != {"dp": DIST_PROCS, "rows": DIST_ROWS} or wk["backend"] != "gloo":
             fail(f"dist: worker {r} ran mesh {wk['mesh']} over {wk['backend']}")
@@ -2479,23 +2904,29 @@ def main():
         if not wk["int32_sum_wraps"]:
             fail("dist: the cross-process int32 sum does not wrap")
         mine = slice(r * b_loc, (r + 1) * b_loc)
-        for k in range(DIST_ROWS):
-            if not (torch.equal(wk["read"][0][k].to(dev), want_read[mine])
-                    and torch.equal(wk["read"][0][k].to(dev), sp_r[r][k])):
-                fail(f"dist: worker {r}'s read on rows shard {k} differs from "
-                     "read_batch or the single-process mesh's")
-            if not (torch.equal(wk["rmw_outs"][0][k].to(dev), sp_o[r][k])
-                    and torch.equal(wk["rmw_outs"][0][k].to(dev), u_outs[mine])):
-                fail(f"dist: worker {r}'s RMW read-outs on rows shard {k} differ from "
-                     "the single-process mesh's or rmw_batch's")
-        if not torch.equal(mesh_mod.unshard_rows(wk["new"]).to(dev), sp_new):
-            fail(f"dist: worker {r}'s new RAM differs from the single-process mesh's")
-        for p_ in ("read", "rmw_batch"):
+        for route in ("", "composed_"):
+            for k in range(DIST_ROWS):
+                if not (torch.equal(wk[route + "read"][0][k].to(dev), want_read[mine])
+                        and torch.equal(wk[route + "read"][0][k].to(dev), sp_r[r][k])):
+                    fail(f"dist: worker {r}'s {route}read on rows shard {k} differs "
+                         "from read_batch or the single-process mesh's")
+                if not (torch.equal(wk[route + "rmw_outs"][0][k].to(dev), sp_o[r][k])
+                        and torch.equal(wk[route + "rmw_outs"][0][k].to(dev),
+                                        u_outs[mine])):
+                    fail(f"dist: worker {r}'s {route}RMW read-outs on rows shard {k} "
+                         "differ from the single-process mesh's or rmw_batch's")
+            if not torch.equal(mesh_mod.unshard_rows(wk[route + "new"]).to(dev), sp_new):
+                fail(f"dist: worker {r}'s {route}new RAM differs from the "
+                     "single-process mesh's")
+        for p_ in DIST_PATHS:
             got = {k_: wk["launches"][p_].get(k_, 0) for k_ in ntt_cuda.LAUNCHES}
             expect_launches(f"dist {p_} in worker {r}", got, **want_per_worker[p_])
             for k_, v_ in got.items():
                 dist_launches[p_][k_] += v_
-            unchecked = set(wk["shapes"][p_]) - set(sp_seen)
+            composed = p_.startswith("composed_")
+            if composed:
+                only_composed(f"dist {p_} in worker {r}", got, also=("ring_all_gather",))
+            unchecked = set(wk["shapes"][p_]) - set(spc_seen if composed else sp_seen)
             if unchecked:
                 fail(f"dist {p_}: worker {r} launched at {sorted(unchecked)}, which no "
                      "call held against the plain versions did")
@@ -2509,9 +2940,9 @@ def main():
     back = server.read_batch(u_state, d_prep_b)
     for k, idx in enumerate(d_rmw):
         worst_d = max(worst_d, decode(back[k], idx, "dist RMW read-back", plain=d_plain))
-    del d_shards, sp_r, sp_o, sp_new, u_outs, u_state, back, want_read
+    del d_shards, sp_r, sp_o, sp_new, u_outs, u_state, back, want_read, spc_r, spc_o, spc_new
     d_ms = {p_: [max(wk["ms"][p_][i] for wk in workers) for i in range(DIST_REPS)]
-            for p_ in ("read", "rmw_batch", "all_reduce")}
+            for p_ in DIST_PATHS + ("all_reduce",)}
     emit({"phase": "dist", "ok": True, "preset": "PARAMS_2_18_TURBO_READOPT",
           "processes": DIST_PROCS, "backend": "gloo", "devices": "one card, shared",
           "global_mesh": {"dp": DIST_PROCS, "rows": DIST_ROWS},
@@ -2522,8 +2953,12 @@ def main():
                       "process's whole new RAM == the single-process batched_rmw_fn "
                       "(dp 2 x rows 2) == rmw_batch",
           "int32_sum_wraps": True,
+          "card": card, "composed_equal_to_fused": "read-outs on every rows shard and "
+                                                    "every process's whole new RAM",
           "dist_read_ms": statistics.median(d_ms["read"]),
           "dist_rmw_batch_ms": statistics.median(d_ms["rmw_batch"]),
+          "dist_composed_read_ms": statistics.median(d_ms["composed_read"]),
+          "dist_composed_rmw_batch_ms": statistics.median(d_ms["composed_rmw_batch"]),
           "dist_all_reduce_ms": statistics.median(d_ms["all_reduce"]),
           "dist_ms_all_max_over_processes": d_ms,
           "dist_ms_by_process": [wk["ms"] for wk in workers],
@@ -2534,9 +2969,9 @@ def main():
           "parent_device_bytes_reserved_beside_the_workers": parent_bytes,
           "worst_noise_log2": worst_d, "noise_bound_log2": -(PAR.k_pt + 1),
           "launches_per_worker": {p_: [wk["launches"][p_] for wk in workers]
-                                  for p_ in ("read", "rmw_batch")},
+                                  for p_ in DIST_PATHS},
           "shapes_launched": {p_: sorted(set().union(*(wk["shapes"][p_] for wk in workers)))
-                              for p_ in ("read", "rmw_batch")}})
+                              for p_ in DIST_PATHS}})
     del workers
 
     # ---- sharded_rmw: 2 chained sharded_rmw_fn cycles, then one ------------
@@ -2658,17 +3093,6 @@ def main():
     TS = BPAR.log_n
     csh_launches = dict.fromkeys(ntt_cuda.LAUNCHES, 0)
     csh_ms, fsh_ms, csh_l = {}, {}, {}
-
-    def same_outputs(a, b, what):
-        """Every tensor of a (nested list) output bit-equal to b's."""
-        if isinstance(a, torch.Tensor):
-            if not torch.equal(a, b):
-                fail(f"composed {what}: differs from the fused factory's output")
-            return
-        if len(a) != len(b):
-            fail(f"composed {what}: {len(a)} parts against {len(b)}")
-        for x, y in zip(a, b):
-            same_outputs(x, y, what)
 
     def composed_call(what, fused_fn, composed_fn, **want):
         """fused_fn() and composed_fn() in turns (fused, composed, composed,
@@ -2828,7 +3252,7 @@ def main():
                statistics.median(srmw_ms))
 
     # ---- the kernels' line --------------------------------------------------
-    # launches over the twenty paths (the dist paths' in the workers),
+    # launches over the twenty-six paths (the dist paths' in the workers),
     # each counted from 0 just before it
     # was driven to just after (comparisons and read-backs are outside; the
     # per-level batched RMW: its four timed calls).  Kernel 12 lies on no
@@ -2839,12 +3263,17 @@ def main():
                "composed_read": c_read_launches, "composed_rmw": c_rmw_launches,
                "composed_batch": c_batch_launches,
                "composed_chained_batch": chained_launches,
+               "readme_rmw": readme_launches, "demo": demo_launches["fused"],
+               "composed_demo": demo_launches["composed"],
                "vm_cycle": vm_launches, "composed_vm_cycle": c_vm_launches,
                "read_2_24": read24_launches,
                "sharded_read": shread_launches, "sharded_batch": shbatch_launches,
                "sharded_rmw": srmw_launches, "load": load_launches,
-               "load_prepared": prep_launches, "dist_read": dist_launches["read"],
+               "load_prepared": prep_launches, "composed_load": c_load_launches,
+               "dist_read": dist_launches["read"],
                "dist_rmw_batch": dist_launches["rmw_batch"],
+               "composed_dist_read": dist_launches["composed_read"],
+               "composed_dist_rmw_batch": dist_launches["composed_rmw_batch"],
                "composed_sharded": csh_launches}
     COMPOSED_PATHS = tuple(p_ for p_ in by_path if p_.startswith("composed_"))
     on_no_path = ("fused_external",)

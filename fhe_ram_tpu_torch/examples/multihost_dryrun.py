@@ -1,8 +1,11 @@
 """Multi-process dryrun of the port's dist path (parallel/dist.py): N
 processes, each holding the same row-sharded RAM, form a global (dp = N,
 rows = 2) mesh over torch.distributed; a batched read and a batched
-read-modify-write run with the dp axis across the processes, and each
-process decrypt-checks its own slices.
+read-modify-write run with the dp axis across the processes, on the fused
+routes and again on the composed ones (composed=True, the counterpart of
+the JAX package's FHERAM_MXU=0) in the same processes, and each process
+decrypt-checks its own slices and holds the composed outputs equal to the
+fused ones.
 
     python3 fhe_ram_tpu_torch/examples/multihost_dryrun.py               # 2 workers on the card
     python3 fhe_ram_tpu_torch/examples/multihost_dryrun.py --device cpu  # 2 workers on the CPU
@@ -20,14 +23,16 @@ prints "multihost dryrun: OK" only when every worker passed.
 A caller that holds the results against its own (tests/test_torch_dist.py,
 chip_smoke.py's dist phase) writes the inputs with save_inputs and starts
 the workers with run_workers(inputs=...): each worker then loads them onto
-its device instead of making its own, runs the read and the RMW once
-counted (launches and the shapes of the wrappers' calls) and `reps` times
-timed (host clock after a barrier, synchronized), and writes what it
-computed beside the inputs, out_<rank>.pt.  Workers import the port only.
+its device instead of making its own, runs the read and the RMW on both
+routes, each once counted (launches and the shapes of the wrappers' calls)
+and `reps` times timed (host clock after a barrier, synchronized), and
+writes what it computed beside the inputs, out_<rank>.pt.  Workers import
+the port only.
 """
 
 import argparse
 import contextlib
+import functools
 import os
 import socket
 import subprocess
@@ -253,9 +258,13 @@ def worker(rank: int, nproc: int, port: int, device: str, inputs: str | None,
     keys = dist.replicated_global(mesh, got["keys"])
     read_l, prep_l, coeff_l, w_l = (dist.host_local_batch(mesh, got[k])
                                     for k in ("read_b", "prep_b", "coeff_b", "w_b"))
-    read_fn, rmw_fn = dist.batched_read_fn(par, mesh), dist.batched_rmw_fn(par, mesh)
-    calls = {"read": lambda: read_fn(shards, read_l, keys.atk_glwe),
-             "rmw_batch": lambda: rmw_fn(shards, prep_l, coeff_l, w_l, keys)}
+    calls = {}
+    for route, composed in (("", False), ("composed_", True)):
+        read_fn = dist.batched_read_fn(par, mesh, composed=composed)
+        rmw_fn = dist.batched_rmw_fn(par, mesh, composed=composed)
+        calls[f"{route}read"] = functools.partial(read_fn, shards, read_l, keys.atk_glwe)
+        calls[f"{route}rmw_batch"] = functools.partial(rmw_fn, shards, prep_l, coeff_l,
+                                                       w_l, keys)
 
     result = {"rank": rank, "mesh": mesh.shape, "backend": torch_dist.get_backend(),
               "launches": {}, "shapes": {}, "ms": {}, "outputs": {}}
@@ -276,7 +285,9 @@ def worker(rank: int, nproc: int, port: int, device: str, inputs: str | None,
             result["ms"][name].append((time.perf_counter() - t0) * 1e3)
             if not all(torch.equal(a, b) for a, b in zip(tensors(again), tensors(out))):
                 raise RuntimeError(f"{name}: a timed call differs from the first")
-    reads, (rmw_outs, new) = result.pop("outputs").values()
+    outputs = result.pop("outputs")
+    reads, (rmw_outs, new) = outputs["read"], outputs["rmw_batch"]
+    c_reads, (c_rmw_outs, c_new) = outputs["composed_read"], outputs["composed_rmw_batch"]
     # the RMW's cross-process step alone: one int32 all_reduce a rows shard
     # of the new shards' size, timed as the paths are
     result["ms"]["all_reduce"] = []
@@ -295,6 +306,8 @@ def worker(rank: int, nproc: int, port: int, device: str, inputs: str | None,
                              device=dev)
         torch_dist.all_reduce(probe)
         result.update(read=to_cpu(reads), rmw_outs=to_cpu(rmw_outs), new=to_cpu(new),
+                      composed_read=to_cpu(c_reads), composed_rmw_outs=to_cpu(c_rmw_outs),
+                      composed_new=to_cpu(c_new),
                       int32_sum_wraps=probe.item() == nproc - 2 - 2 ** 31,
                       foreign_modules=sorted(m for m in sys.modules
                                              if m.split(".")[0] in ("jax", "fhe_ram_tpu")))
@@ -307,8 +320,11 @@ def worker(rank: int, nproc: int, port: int, device: str, inputs: str | None,
     plain_new = plain.copy()
     for k, w in enumerate(words):
         plain_new[idxs[B + k] * par.word_size: (idxs[B + k] + 1) * par.word_size] = w
-    back = read_fn(new, prep_l, keys.atk_glwe)
-    ok = True
+    back = dist.batched_read_fn(par, mesh)(new, prep_l, keys.atk_glwe)
+    composed_equal = all(
+        torch.equal(a, b) for a, b in zip(tensors((c_reads, c_rmw_outs, c_new)),
+                                          tensors((reads, rmw_outs, new))))
+    ok = composed_equal
     b = B // nproc
     for j, g in enumerate(range(rank * b, (rank + 1) * b)):
         for k in range(ROWS):
@@ -318,6 +334,9 @@ def worker(rank: int, nproc: int, port: int, device: str, inputs: str | None,
     print(f"[process {rank}] mesh={mesh.shape} device={dev} preset={preset_for(dev)} "
           f"batch={B} read_ms={result['ms']['read']} "
           f"rmw_batch_ms={result['ms']['rmw_batch']} "
+          f"composed_read_ms={result['ms']['composed_read']} "
+          f"composed_rmw_batch_ms={result['ms']['composed_rmw_batch']} "
+          f"composed {'==' if composed_equal else '!='} fused "
           f"{'ALL CORRECT' if ok else 'WRONG'}", flush=True)
     torch_dist.destroy_process_group()
     return 0 if ok else 1

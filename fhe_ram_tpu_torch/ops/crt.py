@@ -20,6 +20,7 @@ rounding the integer to a power of two.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import torch
@@ -28,6 +29,26 @@ from .modular import I32, I64, to_canonical
 
 _D9 = 9           # digit width of the fold
 _NDIG = 8         # base-2^9 digits covering |x| < 2^63
+
+
+def accumulation_bound_log2(t_rows: int, n: int, base2k: int = 17) -> float:
+    """log2 of the worst-case true-integer magnitude of one folded
+    convolution accumulation: t_rows digit-row negacyclic convolutions,
+    each summing n products of balanced base-2^base2k operands
+    (|digit|, |key limb| <= 2^(base2k-1)).  2^47 at the full gadget
+    (t_rows = 8, n = 4096).
+
+    The exactness contract of every fold: a basis reconstructs the sums
+    exactly when basis_capacity_log2(primes) exceeds this bound.  Two
+    primes below 2^19.6 give ~2^37.9, under the bound at any gadget (2^45
+    even at t_rows = 2), so the fold keeps three."""
+    return math.log2(t_rows) + math.log2(n) + 2.0 * (base2k - 1)
+
+
+def basis_capacity_log2(primes) -> float:
+    """log2 of the largest integer magnitude a CRT basis reconstructs
+    exactly from balanced residues: prod(primes) / 2."""
+    return math.log2(math.prod(float(p) for p in primes)) - 1.0
 
 
 @lru_cache(maxsize=8)

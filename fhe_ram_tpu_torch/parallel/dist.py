@@ -167,17 +167,21 @@ def shard_rows_global(mesh: MultihostMesh, data) -> list:
 
 
 def batched_read_fn(params: Params, mesh: MultihostMesh, with_cache: bool = False,
-                    collective: str = "ring", batch_slice: int = 64):
+                    collective: str = "ring", batch_slice: int = 64,
+                    composed: bool = False):
     """mesh.batched_read_fn on this process's part of the global mesh: call
     as fn(data, coords_b, atk[, cache]) with data from shard_rows_global and
     coords_b from host_local_batch; returns this process's dp slices'
     reads, a list over its dp_local slices of lists over rows shards of
-    [B / dp, W, C, L, N].  No step crosses processes."""
+    [B / dp, W, C, L, N].  No step crosses processes.  composed: the
+    composed routes, as the mesh factories take them."""
     return mesh_mod.batched_read_fn(params, mesh.local, with_cache=with_cache,
-                                    collective=collective, batch_slice=batch_slice)
+                                    collective=collective, batch_slice=batch_slice,
+                                    composed=composed)
 
 
-def batched_rmw_fn(params: Params, mesh: MultihostMesh, collective: str = "ring"):
+def batched_rmw_fn(params: Params, mesh: MultihostMesh, collective: str = "ring",
+                   composed: bool = False):
     """mesh.batched_rmw_fn over the global mesh: B DISTINCT addresses over
     every process's dp slices.  Each process runs its slices' forward walks,
     traces and delta walks against its rows shards and adds its replicas'
@@ -187,8 +191,11 @@ def batched_rmw_fn(params: Params, mesh: MultihostMesh, collective: str = "ring"
     Call as fn(data, coords_prep_b, coords_coeff_b, w_b, keys), the batches
     from host_local_batch, on every process of the group -> (this process's
     read-outs, a list over its dp slices of lists over rows shards of [B /
-    dp, W, C, L, N]; the NEW row shards, equal on every process)."""
-    ctx = mesh_mod._prepare(params, mesh.local, collective)
+    dp, W, C, L, N]; the NEW row shards, equal on every process).
+    composed: the composed routes (a two-pass context), the counterpart of
+    the JAX package's multi-process runs under FHERAM_MXU=0; the same
+    integers."""
+    ctx = mesh_mod._prepare(params, mesh.local, collective, composed)
 
     @torch.no_grad()
     def fn(data, coords_prep_b, coords_coeff_b, w_b, keys):

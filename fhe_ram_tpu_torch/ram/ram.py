@@ -60,6 +60,18 @@ def encrypt_ram(params: Params, ctx: NTTContext, s_ntt, data_bytes,
     return glwe.encrypt(params, ctx, s_ntt, pt, source)  # [W, R, C, L, N]
 
 
+def make_tree(params: Params, device="cuda"):
+    """Zero-initialized persistent packing tree: one int32[W, R_i, C, L, N]
+    a level of params.tree_shape(), on `device` (default: the GPU; a
+    missing GPU raises)."""
+    device = ntt_cuda.require_device(device)
+    C = params.rank + 1
+    return tuple(
+        torch.zeros((params.word_size, r, C, params.limbs_ct, params.n),
+                    dtype=torch.int32, device=device)
+        for r in params.tree_shape())
+
+
 def encrypt_write_word(params: Params, ctx: NTTContext, s_ntt, word_bytes,
                        source: rng.Source):
     """Encrypt a word to write, on s_ntt's device: per byte one GLWE of

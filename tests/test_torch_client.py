@@ -2,7 +2,12 @@
 address.encrypt) through the port's read, on the CPU.  Its random
 streams differ from the JAX package's by design, so the check is the
 decrypted word and the noise bound, as tests/test_ram.py checks the JAX
-package.  Plus the guards of the entry points."""
+package.  Plus the guards of the entry points, and the port's fhe_ram_demo
+(examples/fhe_ram_demo.py) at PARAMS_TEST_SMALL on both routes from one
+seed: every step decodes, and the read, the rpw read-out and pending
+state, the new RAM and both reads after the write are the same integers
+(the read, rpw and write at this preset are held against the JAX package
+in tests/test_torch_read.py and tests/test_torch_write.py)."""
 
 from dataclasses import replace
 
@@ -16,6 +21,7 @@ from fhe_ram_tpu_torch.ops.ntt import get_ntt_context as tget_ctx
 from fhe_ram_tpu_torch.core import glwe as tglwe
 from fhe_ram_tpu_torch.core import keys as tkeys
 from fhe_ram_tpu_torch.core import rng as trng
+from fhe_ram_tpu_torch.examples import fhe_ram_demo
 from fhe_ram_tpu_torch.ram import address as taddress
 from fhe_ram_tpu_torch.ram import ram as tram
 
@@ -144,3 +150,25 @@ def test_cuda_entry_points_raise_without_a_card():
     from fhe_ram_tpu_torch.ops import ntt_cuda
     with pytest.raises(RuntimeError, match="nvcc not found"):
         ntt_cuda.build_kernels()
+
+
+def test_demo_decodes_on_both_routes_bit_equal():
+    fused = fhe_ram_demo.run("small", device="cpu", seed=3)
+    composed = fhe_ram_demo.run("small", device="cpu", seed=3, composed=True)
+    assert fused["preset"] == "PARAMS_TEST_SMALL" and composed["composed"]
+    steps = ["read", "read_prepare_write", "read-back after write", "untouched neighbor"]
+    assert list(fused["values"]) == steps
+    assert fused["values"] == composed["values"]
+    assert fused["values"]["read"] == fused["values"]["read_prepare_write"]
+    assert all(v < fused["noise_bound_log2"] for v in fused["worst_noise_log2"].values())
+    for name, t in fused["tensors"].items():
+        other = composed["tensors"][name]
+        if name == "rpw_tree":
+            assert len(t) == len(other) >= 1
+            assert all(torch.equal(a, b) for a, b in zip(t, other)), name
+        else:
+            assert t.dtype == torch.int32 and torch.equal(t, other), name
+    assert not torch.equal(fused["tensors"]["new_data"], fused["tensors"]["rpw_data"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fhe_ram_demo.run("small")

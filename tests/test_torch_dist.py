@@ -3,11 +3,13 @@
 * Two gloo processes (fhe_ram_tpu_torch/examples/multihost_dryrun.py's
   workers, which import the port only, under a timeout) form a global dp 2
   x rows 2 mesh at PARAMS_TEST_SMALL and run the dist batched read and the
-  dist batched read-modify-write on the inputs this process wrote.  Their
-  read-outs and both processes' whole new RAM equal the single-process
-  batched_read_fn / batched_rmw_fn on a dp 2 x rows 2 mesh bit for bit;
-  every shape a worker called a wrapper at is one the single-process run
-  called it at.  (The single-process paths are held against the JAX package
+  dist batched read-modify-write on the inputs this process wrote, on the
+  fused routes and, in the same processes, on the composed ones
+  (composed=True).  Their read-outs and both processes' whole new RAM equal
+  the single-process batched_read_fn / batched_rmw_fn on a dp 2 x rows 2
+  mesh bit for bit, the composed ones also the single-process composed
+  mesh's; every shape a worker called a wrapper at is one the
+  single-process run of its route called it at.  (The single-process paths are held against the JAX package
   in tests/test_torch_parallel.py and tests/test_torch_read.py.)
 * In this process, a one-process gloo group: init_distributed is
   idempotent, the backend choice, the global mesh's shape, the refusals.
@@ -62,30 +64,39 @@ def test_dist_paths_equal_the_single_process_mesh(tmp_path):
         # the single-process mesh of the same global shape, meanwhile
         mesh = tmesh.make_mesh(4, rows=2, devices=["cpu"] * 4)
         shards = tmesh.shard_data_rows(mesh, data)
-        seen = {}
-        with dryrun.recording_shapes(seen):
-            want_read = tmesh.batched_read_fn(PAR, mesh)(
-                shards, tmesh.shard_addr_batch(mesh, read_b), keys.atk_glwe)
-            want_outs, want_new = tmesh.batched_rmw_fn(PAR, mesh)(
-                shards, tmesh.shard_addr_batch(mesh, prep_b),
-                tmesh.shard_addr_batch(mesh, coeff_b), tmesh.shard_addr_batch(mesh, w_b),
-                keys)
+        want, seen = {}, {}
+        for route, composed in (("", False), ("composed_", True)):
+            with dryrun.recording_shapes(seen.setdefault(route, {})):
+                want[route] = (
+                    tmesh.batched_read_fn(PAR, mesh, composed=composed)(
+                        shards, tmesh.shard_addr_batch(mesh, read_b), keys.atk_glwe),
+                    *tmesh.batched_rmw_fn(PAR, mesh, composed=composed)(
+                        shards, tmesh.shard_addr_batch(mesh, prep_b),
+                        tmesh.shard_addr_batch(mesh, coeff_b),
+                        tmesh.shard_addr_batch(mesh, w_b), keys))
         results = workers.result()
     assert [rc for rc, _ in results] == [0, 0], [log[-3000:] for _, log in results]
 
+    want_read, want_outs, want_new = want[""]
     want_new = tmesh.unshard_rows(want_new)
     assert not torch.equal(want_new, data)
+    c_read, c_outs, c_new = want["composed_"]
+    assert torch.equal(tmesh.unshard_rows(c_new), want_new)
     for rank in range(2):
         got = torch.load(os.path.join(tmp_path, f"out_{rank}.pt"))
         assert got["mesh"] == {"dp": 2, "rows": 2} and got["foreign_modules"] == []
         assert got["int32_sum_wraps"]
-        for k in range(2):                       # every rows shard's copy
-            assert torch.equal(got["read"][0][k], want_read[rank][k])
-            assert torch.equal(got["rmw_outs"][0][k], want_outs[rank][k])
-        assert torch.equal(tmesh.unshard_rows(got["new"]), want_new)
-        for path in ("read", "rmw_batch"):
-            assert set(got["shapes"][path]) <= set(seen), path
-        assert got["shapes"]["rmw_batch"], "no wrapper was called"
+        for route, (reads, outs) in (("", (want_read, want_outs)),
+                                     ("composed_", (c_read, c_outs))):
+            for k in range(2):                   # every rows shard's copy
+                assert torch.equal(got[f"{route}read"][0][k], reads[rank][k])
+                assert torch.equal(got[f"{route}read"][0][k], want_read[rank][k])
+                assert torch.equal(got[f"{route}rmw_outs"][0][k], outs[rank][k])
+                assert torch.equal(got[f"{route}rmw_outs"][0][k], want_outs[rank][k])
+            assert torch.equal(tmesh.unshard_rows(got[f"{route}new"]), want_new)
+            for path in ("read", "rmw_batch"):
+                assert set(got["shapes"][route + path]) <= set(seen[route]), route + path
+            assert got["shapes"][route + "rmw_batch"], "no wrapper was called"
 
 
 def test_init_backend_mesh_and_refusals(monkeypatch):

@@ -31,7 +31,8 @@ def test_port_has_the_expected_layout(monkeypatch):
                  "vm/store.py", "vm/conversion.py", "vm/cycle.py",
                  "vm/bitdecomp.py", "examples/vm_load_demo.py",
                  "parallel/collective.py", "parallel/mesh.py", "parallel/dist.py",
-                 "ops/ntt4.py", "utils/native.py", "examples/multihost_dryrun.py"):
+                 "ops/ntt4.py", "utils/native.py", "examples/multihost_dryrun.py",
+                 "examples/fhe_ram_demo.py"):
         assert want in names, want
     # the golden model's source, the port's own copy
     assert (PORT / "native" / "fheram_native.cpp").is_file()
@@ -98,6 +99,9 @@ def test_importing_the_port_loads_no_jax():
         # the workers' entry module (python -m ...examples.multihost_dryrun)
         "from fhe_ram_tpu_torch.examples import multihost_dryrun\n"
         "assert callable(multihost_dryrun.worker) and callable(multihost_dryrun.run_workers)\n"
+        "from fhe_ram_tpu_torch.examples import fhe_ram_demo\n"
+        "assert callable(fhe_ram_demo.run) and callable(fhe_ram_demo.main)\n"
+        "assert callable(ram.make_tree) and callable(crt.basis_capacity_log2)\n"
         "assert callable(collective.ring_all_gather) and callable(collective.exchange)\n"
         "assert callable(mesh.sharded_read_fn) and callable(mesh.batched_rmw_fn)\n"
         "assert callable(cycle.vm_cycle) and callable(ntt_cuda.fused_dp_chain)\n"

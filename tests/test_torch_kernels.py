@@ -16,6 +16,7 @@ import subprocess
 import sys
 from dataclasses import replace
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import jax
@@ -222,6 +223,14 @@ def _merge_level_jax(jpar, jctx, a, b, k):
                                 trunc=jpar.read_ks_trunc)
 
 
+def _keyswitch_once():
+    """A context in which every keyswitch of the JAX package is a jit of its
+    own inside the reference's jit: the steps of one shape are traced once
+    (the same integers; tracing is most of these compiles' time)."""
+    return mock.patch.object(jks, "keyswitch", jax.jit(jks.keyswitch,
+                                                        static_argnums=(0, 1, 4, 6, 7)))
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_merge_level_matches_jax(case):
     """Unnormalized inputs up to 2^17, as the first merge level gets them
@@ -248,9 +257,10 @@ def test_trace_steps_matches_jax(case, steps):
     jk, tk = _prepare_both(jctx, tctx, _atk(rnd, jpar, gals))
     ct = _ct(rnd, jpar, (B,))
     trunc = jpar.read_ks_trunc
-    want = np.asarray(_jit(lambda c, k: jks.trace_steps(
-        jpar, jctx, c, _jprep(jctx, k), gals, trunc=trunc))(
-            jnp.asarray(ct), jk))
+    with _keyswitch_once():
+        want = np.asarray(_jit(lambda c, k: jks.trace_steps(
+            jpar, jctx, c, _jprep(jctx, k), gals, trunc=trunc))(
+                jnp.asarray(ct), jk))
     got = tks.trace_steps(tpar, tctx, _t(ct), tk, gals, trunc=trunc).numpy()
     assert np.array_equal(got, want)
 
@@ -270,8 +280,9 @@ def test_pack_and_full_trace_match_jax():
         packed = jpacker.pack(jpar, jctx, c, kp, trunc=trunc)
         return packed, jks.trace(jpar, jctx, packed, kp, trunc=trunc)
 
-    want_pack, want_trace = (np.asarray(a) for a in _jit(pack_then_trace)(
-        jnp.asarray(cts), jk))
+    with _keyswitch_once():
+        want_pack, want_trace = (np.asarray(a) for a in _jit(pack_then_trace)(
+            jnp.asarray(cts), jk))
     got = tpacker.pack(tpar, tctx, _t(cts), tk, trunc=trunc)
     assert np.array_equal(got.numpy(), want_pack)
     assert np.array_equal(tks.trace(tpar, tctx, got, tk, trunc=trunc).numpy(),

@@ -12,9 +12,11 @@ client's real ciphertexts go through tests/test_torch_read.py; making
 them at every preset costs more JAX compiles than the suite's time
 allows.)"""
 
+import contextlib
 import functools
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
+from unittest import mock
 
 import numpy as np
 import jax
@@ -24,6 +26,7 @@ import torch
 
 from fhe_ram_tpu import params as jparams
 from fhe_ram_tpu.ops.ntt import get_ntt_context as jget_ctx
+from fhe_ram_tpu.core import ggsw as jggsw
 from fhe_ram_tpu.core import keyswitch as jks
 from fhe_ram_tpu.ram import address as jaddress
 from fhe_ram_tpu.ram import ram as jram
@@ -92,14 +95,26 @@ def _jax_reads(name):
             for coords in addrs]
 
 
+def _trace_once():
+    """A context in which every external product and keyswitch of the JAX
+    package is a jit of its own inside the reference's jit: the calls of
+    one shape (the trace's steps, the chained digits) are traced once (the
+    same integers; the tracing is most of the compile's time here)."""
+    stack = contextlib.ExitStack()
+    for mod, name, static in ((jggsw, "external_product", (0, 1, 4)),
+                              (jks, "keyswitch", (0, 1, 4, 6, 7))):
+        stack.enter_context(mock.patch.object(
+            mod, name, jax.jit(getattr(mod, name), static_argnums=static)))
+    return stack
+
+
 @pytest.fixture(scope="module")
 def jax_reads():
     """Both presets' references, compiled side by side in two threads (XLA
     compiles outside the interpreter lock)."""
-    pool = ThreadPoolExecutor(len(PRESETS))
-    futures = {name: pool.submit(_jax_reads, name) for name in PRESETS}
-    pool.shutdown(wait=False)
-    return futures
+    with _trace_once(), ThreadPoolExecutor(len(PRESETS)) as pool:
+        futures = {name: pool.submit(_jax_reads, name) for name in PRESETS}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @pytest.mark.parametrize("name", list(PRESETS))
@@ -113,7 +128,7 @@ def test_read_matches_jax_bit_for_bit(name, jax_reads):
         tpar, tkeys.EvaluationKeysPrepared(atk_glwe=tatk, atk_ggsw={}, tsk=None),
         device="cpu")
     state = server.init_state(carried.data)
-    for coords, want in zip(addrs, jax_reads[name].result()):
+    for coords, want in zip(addrs, jax_reads[name]):
         taddr = from_reference(address=coords, device="cpu").address
         got = server.read(state, taddress.prepare(tctx, taddr))
         assert got.dtype == torch.int32 and got.shape == want.shape

@@ -24,6 +24,7 @@ from fhe_ram_tpu.core import noise as jnoise
 from fhe_ram_tpu.ops import ntt as jntt
 from fhe_ram_tpu.ops.ntt import get_ntt_context as jget_ctx
 from fhe_ram_tpu.ram import address as jaddress
+from fhe_ram_tpu.ram import ram as jram
 from fhe_ram_tpu.utils import io as jio
 
 from fhe_ram_tpu_torch import params as tparams
@@ -34,6 +35,7 @@ from fhe_ram_tpu_torch.core import noise as tnoise
 from fhe_ram_tpu_torch.core import rng as trng
 from fhe_ram_tpu_torch.ops.ntt import get_ntt_context as tget_ctx
 from fhe_ram_tpu_torch.ram import address as taddress
+from fhe_ram_tpu_torch.ram import ram as tram
 from fhe_ram_tpu_torch.utils import io as tio
 from fhe_ram_tpu_torch.utils import profiling as tprofiling
 
@@ -191,6 +193,31 @@ def test_checkpoints_load_across_the_packages(tmp_path, writer):
             refuse()
     # without Params to hold against, a load checks nothing
     assert _same(tio.load_ram_state(paths["ram"], device="cpu")[0], data)
+
+
+@pytest.mark.parametrize("name", ["PARAMS_TEST_SMALL", "PARAMS_TEST_3LVL"])
+def test_make_tree_matches_the_reference_and_round_trips(tmp_path, name):
+    """ram.make_tree: the JAX package's level shapes and dtype, zeros on
+    the device asked for (the GPU by default), and a state with it saved
+    and loaded whole."""
+    tpar, jpar = getattr(tparams, name), getattr(jparams, name)
+    tree = tram.make_tree(tpar, device="cpu")
+    want = jram.make_tree(jpar)
+    assert [tuple(t.shape) for t in tree] == [tuple(w.shape) for w in want]
+    assert len(tree) == len(tpar.tree_shape()) >= 1
+    assert all(t.dtype == torch.int32 and not t.any() for t in tree)
+    assert all(np.asarray(w).dtype == np.int32 for w in want)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tram.make_tree(tpar)
+    data = torch.arange(tpar.word_size * tpar.num_rows * (tpar.rank + 1)
+                        * tpar.limbs_ct * tpar.n, dtype=torch.int32).reshape(
+        tpar.word_size, tpar.num_rows, tpar.rank + 1, tpar.limbs_ct, tpar.n)
+    path = str(tmp_path / "state.npz")
+    tio.save_ram_state(path, tpar, data, tree)
+    got_data, got_tree = tio.load_ram_state(path, tpar, device="cpu")
+    assert torch.equal(got_data, data) and len(got_tree) == len(tree)
+    assert all(torch.equal(a, b) for a, b in zip(got_tree, tree))
 
 
 def test_timing_and_noise_helpers(tmp_path):
